@@ -1,0 +1,76 @@
+"""Carry fleet state and inputs between numpy and the port.
+
+A FleetState or FleetInputs from any source (for example the JAX
+package's, turned into numpy arrays leaf by leaf) becomes the port's
+tensors with the port's dtypes, so two implementations can step from an
+identical state; :func:`to_numpy` goes the other way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .ops.codel_batch import CodelState
+from .parallel.telemetry import FleetInputs, FleetState
+
+
+def _t(x, dtype, device):
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def fleet_state_from_numpy(state, device=None) -> FleetState:
+    """A FleetState from anything with FleetState's fields holding
+    arrays (``windows``, ``codel.{first_above, drop_next, count,
+    dropping}``, ``now_ms``)."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    c = state.codel
+    return FleetState(
+        windows=_t(state.windows, f32, dev),
+        codel=CodelState(first_above=_t(c.first_above, f32, dev),
+                         drop_next=_t(c.drop_next, f32, dev),
+                         count=_t(c.count, f32, dev),
+                         dropping=_t(c.dropping, torch.bool, dev)),
+        now_ms=_t(state.now_ms, f32, dev))
+
+
+def fleet_inputs_from_numpy(inp, device=None) -> FleetInputs:
+    """A FleetInputs from anything with FleetInputs' fields holding
+    arrays; `active` and `reset` become bool, the rest float32."""
+    dev = resolve_device(device)
+    return FleetInputs(**{
+        name: _t(getattr(inp, name),
+                 torch.bool if name in ('active', 'reset')
+                 else torch.float32, dev)
+        for name in FleetInputs._fields})
+
+
+def to_numpy(tree):
+    """Every tensor in a tree of NamedTuples, dicts, lists and tuples as
+    a numpy array on the host, the tree's shape kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, '_fields'):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree
+
+
+def target_near_boundary(filtered: np.ndarray, samples: np.ndarray,
+                         spares: np.ndarray,
+                         eps: float = 1e-4) -> np.ndarray:
+    """Bool mask of the rows whose `target` and `clamped` can flip when
+    `filtered` moves by a rounding error: `filtered` within `eps` of an
+    integer (where its ceil changes), or the raw target within `eps` of
+    1.05 times that ceil (where the clamp changes). Two FIR
+    implementations that sum in different orders agree on `target`
+    exactly off these rows."""
+    frac = filtered - np.floor(filtered)
+    near_int = (frac < eps) | (frac > 1.0 - eps)
+    near_clamp = np.abs(samples + spares - np.ceil(filtered) * 1.05) < eps
+    return near_int | near_clamp

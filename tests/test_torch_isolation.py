@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and runs its telemetry step where JAX cannot be imported."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip('torch')
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__')
+
+_NO_JAX = """
+import sys
+for name in ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__'):
+    sys.modules[name] = None
+import cueball_tpu_torch as ct
+from cueball_tpu_torch.entry import entry
+fn, (state, inp) = entry(device='cpu')
+state, out, fleet = fn(state, inp)
+assert out['filtered'].shape == (1024,)
+assert float(fleet['n_pools']) == 1024.0
+assert not [m for m, mod in sys.modules.items() if mod is not None and
+            m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu')]
+print('ok')
+"""
+
+
+def _forbidden_imports(path: Path) -> list:
+    tree = ast.parse(path.read_text(encoding='utf-8'), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        for name in names:
+            if name.split('.')[0] in FORBIDDEN:
+                bad.append('%s:%d %s' % (path.name, node.lineno, name))
+    return bad
+
+
+def test_port_runs_with_jax_unimportable():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, '-c', _NO_JAX], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == 'ok'
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((ROOT / 'cueball_tpu_torch').rglob('*.py'))
+    files.append(ROOT / 'chip_smoke.py')
+    assert len(files) > 10
+    bad = [b for f in files for b in _forbidden_imports(f)]
+    assert bad == []
