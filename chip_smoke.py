@@ -17,7 +17,24 @@ Phases, each of which exits non-zero on failure:
    run; the kernel's launch count over these ticks must be 50;
 5. scan: ``fleet_scan`` over 64 ticks at 65,536 pools equals stepping;
 6. timing: the kernel, its plain version and ``torch.mv`` (the one
-   PyTorch call computing the same function) beside the card's bound.
+   PyTorch call computing the same function) beside the card's bound;
+7. control: beside phase 4's 50 ticks, the control step on each tick's
+   FleetInputs and ``filtered`` output at 1,048,576 pools, held bit for
+   bit (decisions, epoch, carried targets) against the control step on
+   the CPU on copies of the same tensors, ``mean_load`` to rtol 1e-5;
+8. health: the health step at 102,400 backends for 10 ticks (latencies
+   cycling 1-16 ms, every 50th backend erring, every 1000th 64x slow),
+   against the CPU: verdicts exactly off the score's rounding boundary,
+   the fleet's counts exactly (those that read the score within what
+   the backends on its boundary can move), floats to rtol 1e-5, and
+   some backend judged gray;
+9. sampler: the main path through its real entry point, two
+   ``FleetSampler``s with control and health on over one
+   ``entry.SamplerWorkload`` (one pool monitor of 65,536 duck-typed
+   pools, one frozen clock, attributed claims), one on the card and
+   one on the CPU, for 20 ticks with 1% of pools changing load each
+   tick; their records agree, CoDel drops occur, and the FIR kernel
+   launches once per tick.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -33,10 +50,14 @@ import numpy as np
 import torch
 
 from cueball_tpu_torch import convert
-from cueball_tpu_torch.entry import entry, example_inputs, tick_inputs
+from cueball_tpu_torch.entry import (SamplerWorkload, entry, example_inputs,
+                                     health_example_columns, tick_inputs)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
+from cueball_tpu_torch.parallel import control as ctl
+from cueball_tpu_torch.parallel import health as hl
 from cueball_tpu_torch.parallel import telemetry as tel
+from cueball_tpu_torch.parallel.sampler import FleetSampler
 
 RTOL = ATOL = 1e-5          # the tolerance of the multichip dryrun
 ENTRY_POOLS = 1024
@@ -47,6 +68,9 @@ KERNEL_POOLS = (1, 255, 256, 300, 1 << 16, 1 << 20)
 KERNEL_TAPS = (128, 97)
 TIMING_POOLS = (ENTRY_POOLS, LIVE_POOLS)
 TAPS = 128
+HEALTH_BACKENDS, HEALTH_TICKS = 102_400, 10
+SAMPLER_POOLS, SAMPLER_TICKS = 1 << 16, 20
+SAMPLER_BACKENDS = 64
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -131,6 +155,112 @@ def fir_bound_ms(p, k):
     return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
 
 
+def cpu_copy(tree):
+    """A NamedTuple of tensors, each copied to the CPU."""
+    return type(tree)(*(t.cpu() for t in tree))
+
+
+def check_control(tag, got, want):
+    """Hold one control step's (state, decisions, fleet) against the
+    CPU run's: every decision and the carried state bit for bit,
+    `mean_load` to rtol 1e-5."""
+    (gs, gd, gf), (ws, wd, wf) = got, want
+    for name in wd:
+        check(torch.equal(gd[name].cpu(), wd[name]),
+              '%s: %s differs' % (tag, name))
+    check(torch.equal(gs.targets.cpu(), ws.targets), '%s: targets' % tag)
+    for name in ('n_pools', 'pressure', 'max_sojourn'):
+        check(torch.equal(gf[name].cpu(), wf[name]), '%s: %s' % (tag, name))
+    torch.testing.assert_close(gf['mean_load'].cpu(), wf['mean_load'],
+                               rtol=RTOL, atol=0)
+
+
+def check_health(tag, got, want):
+    """Hold one health step against the CPU run's: `gray` and `score`
+    exactly off the score boundary; the fleet's counts that do not read
+    `score` exactly; median, MAD and `n_gray` exactly when no backend is
+    on the boundary, else within how far that many +-1 flips of `score`
+    can move them; floats to rtol 1e-5. Returns the number of backends
+    on the boundary."""
+    (_, gv, gf), (_, wv, wf) = got, want
+    edge = convert.health_score_near_boundary(wv['ewma_ms'].numpy())
+    off = torch.as_tensor(~edge)
+    for name in ('gray', 'score'):
+        check(torch.equal(gv[name].cpu()[off], wv[name][off]),
+              '%s: %s differs off the score boundary' % (tag, name))
+    check(torch.equal(gv['epoch'].cpu(), wv['epoch']), '%s: epoch' % tag)
+    for name in ('ewma_ms', 'z'):
+        torch.testing.assert_close(gv[name].cpu(), wv[name], rtol=RTOL,
+                                   atol=ATOL)
+    n_edge = int(edge.sum())
+    # median_score, mad_score, n_gray: the median moves by at most one,
+    # each deviation by that plus its own flip, each flip one verdict.
+    slack = dict(zip(('median_score', 'mad_score', 'n_gray'),
+                     (1, 2, n_edge) if n_edge else (0, 0, 0)))
+    for name, want_v in wf.items():
+        got_v = gf[name].cpu()
+        if want_v.dtype.is_floating_point:
+            torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+        elif name in slack:
+            check(got_v.dtype == want_v.dtype and
+                  abs(int(got_v) - int(want_v)) <= slack[name],
+                  '%s: %s %d vs %d with %d backends on the score boundary'
+                  % (tag, name, int(got_v), int(want_v), n_edge))
+        else:
+            check(torch.equal(got_v, want_v), '%s: %s' % (tag, name))
+    return n_edge
+
+
+def check_sampler_records(tag, got, want):
+    """Hold the card sampler's tick record against the CPU sampler's, as
+    the tests do: inputs equal, floats to RTOL/ATOL, `drop` exactly,
+    `target`, `clamped` and the plans exactly off the target boundary,
+    the health record's verdicts exactly. Returns (rows on the target
+    boundary, drops this tick)."""
+    gp, wp = got['pools'], want['pools']
+    check(gp.tp_rows == wp.tp_rows, '%s: rows differ' % tag)
+    for name, col in wp.tp_cols.items():
+        check(np.array_equal(gp.tp_cols[name], col),
+              '%s: input %s differs' % (tag, name))
+    go, wo = gp.tp_out, wp.tp_out
+    for name in ('filtered', 'retry_backoff'):
+        np.testing.assert_allclose(go[name], wo[name], rtol=RTOL, atol=ATOL,
+                                   err_msg='%s %s' % (tag, name))
+    check(np.array_equal(go['drop'], wo['drop']), '%s: drop' % tag)
+    off = ~convert.target_near_boundary(
+        wo['filtered'], wp.tp_cols['samples'], wp.tp_cols['spares'])
+    for name in ('target', 'clamped'):
+        check(np.array_equal(go[name][off], wo[name][off]),
+              '%s: %s differs off the boundary' % (tag, name))
+    for name, v in want['fleet'].items():
+        check(abs(got['fleet'][name] - v) <= ATOL + RTOL * abs(v),
+              '%s: fleet %s %r vs %r' % (tag, name, got['fleet'][name], v))
+    gc, wc = got['control'], want['control']
+    for name in ('applied', 'rejected', 'skipped', 'epoch', 'step_ms'):
+        check(gc[name] == wc[name], '%s: control %s' % (tag, name))
+    for name, v in wc['decisions'].items():
+        mask = off if v.ndim and name != 'codel_target' else ...
+        check(np.array_equal(gc['decisions'][name][mask], v[mask]),
+              '%s: decision %s differs' % (tag, name))
+    for name, v in wc['fleet'].items():
+        check(abs(gc['fleet'][name] - v) <= RTOL * abs(v),
+              '%s: control %s' % (tag, name))
+    gh, wh = got['health'], want['health']
+    check((gh['epoch'], gh['gray']) == (wh['epoch'], wh['gray']),
+          '%s: health verdicts differ' % tag)
+    check(sorted(gh['backends']) == sorted(wh['backends']),
+          '%s: health backends differ' % tag)
+    for key, wb in wh['backends'].items():
+        gb = gh['backends'][key]
+        check((gb['gray'], gb['score']) == (wb['gray'], wb['score']),
+              '%s: backend %s verdict differs' % (tag, key))
+    for name, v in wh['fleet'].items():
+        g = gh['fleet'][name]
+        check(type(g) is type(v) and abs(g - v) <= ATOL + RTOL * abs(v),
+              '%s: health %s %r vs %r' % (tag, name, g, v))
+    return int((~off).sum()), int(wo['drop'].sum())
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
@@ -192,6 +322,12 @@ def main():
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     tick_ms, edge_rows = [], 0
+    # Phase 7 rides on these ticks: the control step on each tick's own
+    # device tensors, and on the CPU on copies of them.
+    control_step = ctl.make_control_step()
+    c_state = ctl.control_init(LIVE_POOLS, device=dev)
+    c_ref = ctl.control_init(LIVE_POOLS, device='cpu')
+    ctl_ms = []
     fir.fir_apply_cuda.launches = 0
     for k in range(LIVE_TICKS):
         inp = tick_inputs(base, rng, k)
@@ -204,6 +340,20 @@ def main():
         errs.append(max_errs(*compare_step(
             'live tick %d' % k, (state, out, fleet), (ref, r_out, r_fleet))))
         edge_rows += check_target('live tick %d' % k, out, r_out, inp)
+
+        cinp = ctl.ControlInputs(
+            samples=inp.samples, sojourns=inp.sojourns,
+            filtered=out['filtered'], target_delay=inp.target_delay,
+            spares=inp.spares, maximum=inp.maximum, active=inp.active,
+            reset=inp.reset, now_ms=inp.now_ms)
+        start.record()
+        c_got = control_step(c_state, cinp)
+        end.record()
+        c_want = control_step(c_ref, cpu_copy(cinp))
+        torch.cuda.synchronize()
+        ctl_ms.append(start.elapsed_time(end))
+        check_control('control tick %d' % k, c_got, c_want)
+        c_state, c_ref = c_got[0], c_want[0]
     launches = fir.fir_apply_cuda.launches
     check(launches == LIVE_TICKS,
           'FIR kernel launched %d times in %d live ticks'
@@ -257,12 +407,99 @@ def main():
               'bound %.5f ms (%s)' % (p, TAPS, kernel_ms, plain_ms,
                                       library_ms, bound_ms, bound_by))
 
+    phase('7 control')
+    ctl_step_ms = sum(ctl_ms[1:]) / (len(ctl_ms) - 1)
+    c_dec = c_got[1]
+    print('control: %d steps at %d pools bit-identical to the CPU run '
+          '(epoch %d, %d rows with a CoDel target, pressure %.6g)'
+          % (LIVE_TICKS, LIVE_POOLS, int(c_dec['epoch']),
+             int((c_dec['codel_target'] > 0).sum()),
+             float(c_got[2]['pressure'])))
+    print('control: first step %.4f ms; ms/step %.5f (mean of steps 1-%d, '
+          'CUDA events)' % (ctl_ms[0], ctl_step_ms, LIVE_TICKS - 1))
+
+    phase('8 health')
+    cols = health_example_columns(HEALTH_BACKENDS)
+    h_inp = hl.health_inputs(HEALTH_BACKENDS, device=dev, **cols)
+    h_ref_inp = hl.health_inputs(HEALTH_BACKENDS, device='cpu', **cols)
+    health_step = hl.make_health_step()
+    h_state = hl.health_init(HEALTH_BACKENDS, device=dev)
+    h_ref = hl.health_init(HEALTH_BACKENDS, device='cpu')
+    h_ms, h_edge = [], 0
+    for k in range(HEALTH_TICKS):
+        now = torch.tensor(1000.0 * (k + 1), dtype=torch.float32)
+        tick_inp = h_inp._replace(now_ms=now.to(dev))
+        start.record()
+        h_got = health_step(h_state, tick_inp)
+        end.record()
+        h_want = health_step(h_ref, h_ref_inp._replace(now_ms=now))
+        torch.cuda.synchronize()
+        h_ms.append(start.elapsed_time(end))
+        h_edge += check_health('health tick %d' % k, h_got, h_want)
+        h_state, h_ref = h_got[0], h_want[0]
+    n_gray = int(h_got[2]['n_gray'])
+    check(n_gray > 0, 'health: no backend judged gray in %d ticks'
+          % HEALTH_TICKS)
+    health_step_ms = sum(h_ms[1:]) / (len(h_ms) - 1)
+    print('health: %d ticks at %d backends agree with the CPU run; '
+          'n_gray %d, median score %d, MAD %d; %d backend-ticks on the '
+          'score boundary' % (HEALTH_TICKS, HEALTH_BACKENDS, n_gray,
+                              int(h_got[2]['median_score']),
+                              int(h_got[2]['mad_score']), h_edge))
+    print('health: first step %.4f ms; ms/step %.5f (mean of steps 1-%d, '
+          'CUDA events)' % (h_ms[0], health_step_ms, HEALTH_TICKS - 1))
+
+    phase('9 sampler (main path)')
+    work = SamplerWorkload(SAMPLER_POOLS, SAMPLER_BACKENDS)
+    on_card = FleetSampler(work.options())
+    on_cpu = FleetSampler(work.options(device='cpu'))
+    check(on_card.fs_device.type == 'cuda', 'sampler default is not CUDA')
+    s_ms, s_edge, s_drops = [], 0, 0
+    fir.fir_apply_cuda.launches = 0
+    for k in range(SAMPLER_TICKS):
+        work.advance()
+        t0 = time.perf_counter()
+        got = on_card.sample_once()
+        s_ms.append((time.perf_counter() - t0) * 1e3)
+        want = on_cpu.sample_once()
+        edge, drops = check_sampler_records('sampler tick %d' % k, got, want)
+        s_edge += edge
+        s_drops += drops
+    sampler_launches = fir.fir_apply_cuda.launches
+    check(sampler_launches == SAMPLER_TICKS,
+          'FIR kernel launched %d times in %d sampler ticks'
+          % (sampler_launches, SAMPLER_TICKS))
+    check(s_drops > 0, 'sampler: no CoDel drop in %d ticks' % SAMPLER_TICKS)
+    check(got['health']['gray'] == ['backend-7'],
+          'sampler: health judged %r gray' % (got['health']['gray'],))
+    on_card.stop()
+    on_cpu.stop()
+    sampler_ms = sum(s_ms[1:]) / (len(s_ms) - 1)
+    print('sampler: %d ticks at %d pools agree with the CPU sampler; '
+          '%d drops; %d row-ticks on the target boundary; gray %s'
+          % (SAMPLER_TICKS, SAMPLER_POOLS, s_drops, s_edge,
+             got['health']['gray']))
+    print('sampler: fir launches %d; first tick %.3f ms; wall ms/tick '
+          '%.4f (mean of ticks 1-%d, host clock, ends in a device sync); '
+          'pools/s %.6g' % (sampler_launches, s_ms[0], sampler_ms,
+                            SAMPLER_TICKS - 1,
+                            SAMPLER_POOLS / (sampler_ms / 1e3)))
+    print('steps ' + json.dumps({
+        'control_ms_per_step': ctl_step_ms, 'control_pools': LIVE_POOLS,
+        'health_ms_per_step': health_step_ms,
+        'health_backends': HEALTH_BACKENDS,
+        'sampler_wall_ms_per_tick': sampler_ms,
+        'sampler_pools': SAMPLER_POOLS,
+        'sampler_pools_per_s': SAMPLER_POOLS / (sampler_ms / 1e3)}))
+
     main_t = times[LIVE_POOLS]
     record = {
         'name': 'fir', 'route': 'cuda',
         'source': 'cueball_tpu_torch/csrc/fir.cu',
         'replaces': 'cueball_tpu/ops/fir.py:84',
-        'launches': launches,
+        'launches': launches + sampler_launches,
+        'launches_by_path': {'live_step': launches,
+                             'sampler': sampler_launches},
         'max_abs_err': max(e[0] for e in errs),
         'max_rel_err': max(e[1] for e in errs),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

@@ -1,9 +1,13 @@
-"""cueball_tpu_torch: the fleet telemetry step in PyTorch, on CUDA.
+"""cueball_tpu_torch: the fleet runtime in PyTorch, on CUDA.
 
 The counterpart of the JAX package ``cueball_tpu``'s batched control
-laws (``ops``) and fleet telemetry (``parallel.telemetry``), written in
-PyTorch, with the FIR matvec as a hand-written CUDA kernel for Hopper
-(``csrc/fir.cu``). It imports nothing of ``cueball_tpu``.
+laws (``ops``) and its live fleet runtime on one device
+(``parallel``: the telemetry, control and health steps and the
+``FleetSampler`` that drives them), written in PyTorch, with the FIR
+matvec as a hand-written CUDA kernel for Hopper (``csrc/fir.cu``). It
+imports nothing of ``cueball_tpu``: the host state the sampler reaches
+(clock, backend registry, pool monitor) has its own copy here
+(``host``, ``monitor``, ``events``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card the default raises. Importing the
@@ -14,12 +18,13 @@ package builds no kernel: ``kernels.build`` runs nvcc on first use.
 
 from .ops import (CodelState, backoff_schedule, codel_scan, fir_apply,
                   fir_apply_cuda, fir_smooth, gen_taps, spread_delays)
-from .parallel import (FleetInputs, FleetState, fleet_init, fleet_inputs,
-                       fleet_scan, fleet_step, fleet_step_cuda,
-                       fleet_step_plain, make_live_step, rebase_state)
+from .parallel import (FleetInputs, FleetSampler, FleetState, fleet_init,
+                       fleet_inputs, fleet_scan, fleet_step,
+                       fleet_step_cuda, fleet_step_plain, make_live_step,
+                       rebase_state)
 
-__all__ = ['CodelState', 'FleetInputs', 'FleetState', 'backoff_schedule',
-           'codel_scan', 'fir_apply', 'fir_apply_cuda', 'fir_smooth',
-           'fleet_init', 'fleet_inputs', 'fleet_scan', 'fleet_step',
-           'fleet_step_cuda', 'fleet_step_plain', 'gen_taps',
+__all__ = ['CodelState', 'FleetInputs', 'FleetSampler', 'FleetState',
+           'backoff_schedule', 'codel_scan', 'fir_apply', 'fir_apply_cuda',
+           'fir_smooth', 'fleet_init', 'fleet_inputs', 'fleet_scan',
+           'fleet_step', 'fleet_step_cuda', 'fleet_step_plain', 'gen_taps',
            'make_live_step', 'rebase_state', 'spread_delays']

@@ -4,14 +4,26 @@
 - :func:`example_inputs` / :func:`tick_inputs` — seeded numpy draws in
   the same order as ``__graft_entry__`` does, so both packages
   can be fed identical inputs.
+- :func:`health_example_columns` — health-step inputs like
+  ``bench.py``'s health sweep.
+- :class:`SyntheticPool` and :func:`frozen_host` — a fleet of pools and
+  a hand-advanced clock for driving ``FleetSampler`` without live pools.
+- :class:`SamplerWorkload` — such a fleet with CoDel queues, waiting
+  claims, churning loads and attributed claims: the sampler workload
+  ``chip_smoke.py`` checks and ``profile_live`` profiles.
 """
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
+from . import host
 from ._device import resolve_device
+from .monitor import PoolMonitor
+from .parallel.health import BUCKET_SCALE, LAT_BINS
 from .parallel.telemetry import fleet_init, fleet_inputs, fleet_step
 
 
@@ -57,3 +69,125 @@ def entry(device=None):
     """(fn, example_args) for a single-device run of the telemetry step
     at 1024 pools."""
     return fleet_step, example_inputs(1024, device=device)
+
+
+def health_example_columns(n: int) -> dict:
+    """Numpy columns for ``health_inputs`` over ``n`` backends, like
+    ``bench.py``'s health sweep: latencies cycle 1-16 ms, an error on
+    every 50th backend, ten claims per backend per tick; and every
+    1000th backend is 64x slower, so the gray verdict is exercised.
+    Row 0 (the unattributed bucket) is not eligible."""
+    idx = np.arange(n)
+    lat = (1.0 + idx % 16).astype(np.float32)
+    lat[idx % 1000 == 0] *= 64.0
+    bucket = np.minimum((np.log2(1.0 + lat) * BUCKET_SCALE).astype(np.int32),
+                        LAT_BINS - 1)
+    buckets = np.zeros((n, LAT_BINS), np.int32)
+    buckets[idx, bucket] = 10
+    return dict(lat_sum=lat * 10.0, lat_count=np.full(n, 10, np.int32),
+                lat_buckets=buckets, claim_buckets=buckets,
+                errors=(idx % 50 == 0).astype(np.int32),
+                active=np.ones(n, bool), eligible=idx > 0)
+
+
+class _Codel:
+    def __init__(self, target):
+        self.cd_targdelay = target
+
+
+class _Waiter:
+    def __init__(self, started):
+        self.ch_started = started
+
+    def is_in_state(self, state):
+        return state == 'waiting'
+
+
+class SyntheticPool:
+    """A pool as FleetSampler reads it (the surface of bench.py's
+    ``_BenchPool``: a load sample, spares 2, maximum 16, no slot in
+    backoff), speaking the push protocol: :meth:`set_load` marks its
+    rows dirty. ``codel_target`` (ms) gives it a CoDel queue;
+    ``waiting_since`` (ms on the sampler's clock) puts a claim at the
+    head of that queue."""
+
+    def __init__(self, i: int, codel_target: float | None = None,
+                 waiting_since: float | None = None):
+        self.p_uuid = 'synthetic-%d' % i
+        self.p_spares = 2
+        self.p_max = 16
+        self.p_codel = None if codel_target is None else _Codel(codel_target)
+        self.p_waiters = (() if waiting_since is None
+                          else (_Waiter(waiting_since),))
+        self.p_connections = {}
+        self.load = float(i % 8)
+        self.handles = ()
+
+    def lp_load_sample(self):
+        return self.load
+
+    def telemetry_attach(self, handle):
+        self.handles = self.handles + (handle,)
+
+    def telemetry_detach(self, handle):
+        self.handles = tuple(h for h in self.handles if h is not handle)
+
+    def set_load(self, v: float):
+        self.load = v
+        for h in self.handles:
+            h.mark_dirty()
+
+
+def frozen_host(clock: list):
+    """The port's host seam with its clock read from ``clock[0]`` (ms),
+    which the caller advances by hand: two samplers given it see the
+    same instant."""
+    names = ('_Interval', 'backend_index', 'backend_key_for',
+             'add_backend_sink', 'remove_backend_sink', 'backend_sinks',
+             'active_collector', 'loop_lag_p99_us', 'drain_native')
+    return types.SimpleNamespace(
+        **{name: getattr(host, name) for name in names},
+        current_millis=lambda: clock[0])
+
+
+class SamplerWorkload:
+    """``n_pools`` synthetic pools on one :class:`PoolMonitor` and one
+    frozen clock, for samplers with control and health on. Every third
+    pool has a 300 ms CoDel target and every fifth a claim waiting since
+    up to 0.7 s, so that CoDel drops. :meth:`advance` moves one tick:
+    the clock by 200 ms, a new load on 1% of the pools, and 512 claims
+    attributed over ``n_backends`` backends (``backend-7`` 40x slower,
+    2% failing), offered to every registered backend sink as a claim
+    tracer would. A sampler's health table joins the sinks on its first
+    tick, so it sees the claims of later ticks."""
+
+    def __init__(self, n_pools: int, n_backends: int = 64, seed: int = 9):
+        self.clock = [1.0e6]
+        self.monitor = PoolMonitor()
+        self.pools = [SyntheticPool(
+            i, codel_target=300.0 if i % 3 == 0 else None,
+            waiting_since=(self.clock[0] - float(i % 700) if i % 5 == 0
+                           else None))
+            for i in range(n_pools)]
+        for p in self.pools:
+            self.monitor.register_pool(p)
+        self.keys = ['backend-%d' % b for b in range(n_backends)]
+        self.rng = np.random.default_rng(seed)
+
+    def options(self, **extra) -> dict:
+        """FleetSampler options over this workload, control and health
+        on; ``extra`` adds to them (``device='cpu'``)."""
+        return dict({'monitor': self.monitor, 'control': True,
+                     'health': True, 'host': frozen_host(self.clock)},
+                    **extra)
+
+    def advance(self) -> None:
+        rng, n = self.rng, len(self.pools)
+        self.clock[0] += 200.0
+        for i in rng.choice(n, n // 100, replace=False):
+            self.pools[i].set_load(float(rng.integers(0, 12)))
+        for b in rng.integers(0, len(self.keys), 512):
+            ms = float(rng.uniform(1, 8)) * (40.0 if b == 7 else 1.0)
+            ok = bool(rng.random() < 0.98)
+            for sink in host.backend_sinks():
+                sink.observe(self.keys[b], ms if ok else None, ms + 1.0, ok)

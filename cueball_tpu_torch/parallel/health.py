@@ -1,0 +1,691 @@
+"""Fleet health analytics: the step that JUDGES, the counterpart of
+``cueball_tpu.parallel.health`` on one device.
+
+The raw per-backend attribution columns (folded out of finished claims
+by :class:`BackendTable`) become *judgments* in one pass over a
+backends axis:
+
+- **per-backend robust stats**: an EWMA of mean claim service latency
+  and a decayed log-bucket latency sketch per backend row;
+- **anomaly detection**: each backend's EWMA is quantized onto an
+  integer log-latency score (16 units per doubling); the fleet baseline
+  is the MEDIAN score and its MAD, both read from int32 score
+  histograms. A backend is flagged gray when its score sits
+  ``Z_THRESHOLD`` robust deviations AND at least one full latency
+  doubling above the median, with streak hysteresis (``ENTER_STREAK``
+  ticks to flag, ``EXIT_STREAK`` clean ticks to clear);
+- **SLO burn rates**: declared objectives (:class:`SLOObjectives`) are
+  evaluated per tick from int32 fleet sums into burn rates, smoothed
+  into fast- and slow-window EWMAs with the multiwindow alert
+  thresholds (fast > 14.4x budget pages, slow > 6x opens a ticket).
+
+Row 0 of the backends axis is RESERVED for unattributed traffic: it
+feeds the SLO sums but is masked out of gray detection by ``eligible``.
+
+Against the JAX package: the histograms, counts, medians and streaks
+are integer work and agree exactly. The floats do not agree bit for
+bit: XLA fuses ``prev + a*(mean-prev)`` and ``h*0.9 + buckets`` into
+fused multiply-adds, and ``log2``/``exp2`` differ in the last bit. So
+``score`` (and every verdict downstream of it) agrees exactly only on
+rows whose ``16*log2(1+ewma)`` is off the rounding boundary
+(``convert.health_score_near_boundary``), and the floats agree to a
+tolerance. The histograms are built with ``scatter_add_`` of int32
+counts into 256 bins, not a [B, 256] one-hot.
+
+Host glue lives here too: :class:`BackendTable` accumulates the
+per-backend columns from the host's backend sinks, and
+:class:`HealthMonitor` drives the step and publishes
+``cueball_backend_health{backend=...}`` / ``cueball_slo_burn_rate``
+gauges and its snapshot; :func:`reduce_health` merges per-shard
+verdicts. The multi-device forms wait for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import math
+import threading
+import typing
+
+import numpy as np
+import torch
+
+from .. import host as default_host
+from .._device import resolve_device, to_host_values
+from .control import MESH_NOT_PORTED
+from .telemetry import fold_backend_slots
+
+__all__ = ['BackendTable', 'DEFAULT_OBJECTIVES', 'HealthInputs',
+           'HealthMonitor', 'HealthState', 'SLOObjectives',
+           'active_monitors', 'health_init', 'health_inputs',
+           'health_snapshot', 'health_step', 'latency_bucket',
+           'make_health_step', 'reduce_health']
+
+#: Latency sketch geometry: bucket k spans latencies whose
+#: log2(1 + ms) falls in [k/4, (k+1)/4).
+LAT_BINS = 64
+BUCKET_SCALE = 4.0
+#: Score geometry: 16 units per latency doubling, 256 bins.
+SCORE_BINS = 256
+SCORE_SCALE = 16.0
+
+#: EWMA smoothing for per-backend mean latency and the sketch decay
+#: (per health tick).
+EWMA_ALPHA = 0.3
+SKETCH_DECAY = 0.9
+
+#: Gray verdict thresholds.
+Z_THRESHOLD = 3.5
+GRAY_FLOOR_Q = int(SCORE_SCALE)
+MIN_BASELINE = 4
+ENTER_STREAK = 3
+EXIT_STREAK = 5
+
+#: Burn-rate smoothing and the multiwindow alert thresholds.
+FAST_ALPHA = 0.5
+SLOW_ALPHA = 0.05
+FAST_BURN_ALERT = 14.4
+SLOW_BURN_ALERT = 6.0
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+class SLOObjectives(typing.NamedTuple):
+    """Declared service-level objectives, fixed per step (hashable, so
+    step builders memoize per objective)."""
+    success_target: float = 0.999   # claim success rate
+    claim_p99_ms: float = 250.0     # claim latency p99 bound (ms)
+
+
+DEFAULT_OBJECTIVES = SLOObjectives()
+
+
+class HealthState(typing.NamedTuple):
+    """Carried per-backend health state."""
+    ewma_ms: torch.Tensor      # [B] f32 EWMA of mean service latency
+    lat_hist: torch.Tensor     # [B, LAT_BINS] f32 decayed latency sketch
+    gray_streak: torch.Tensor  # [B] i32 consecutive flagged ticks
+    ok_streak: torch.Tensor    # [B] i32 consecutive clean ticks
+    gray: torch.Tensor         # [B] bool current verdict
+    burn_fast_err: torch.Tensor  # 0-dim f32 fast-window error burn
+    burn_slow_err: torch.Tensor  # 0-dim f32 slow-window error burn
+    burn_fast_lat: torch.Tensor  # 0-dim f32 fast-window latency burn
+    burn_slow_lat: torch.Tensor  # 0-dim f32 slow-window latency burn
+    epoch: torch.Tensor        # 0-dim i32 verdict epoch
+    now_ms: torch.Tensor       # 0-dim f32 clock of the last step
+
+
+class HealthInputs(typing.NamedTuple):
+    """One health tick's per-backend attribution columns (all [B]
+    except the sketches and the clock)."""
+    lat_sum: torch.Tensor        # f32 sum of ok service latencies (ms)
+    lat_count: torch.Tensor      # i32 ok claims with a service latency
+    lat_buckets: torch.Tensor    # [B, LAT_BINS] i32 service sketch adds
+    claim_buckets: torch.Tensor  # [B, LAT_BINS] i32 claim-latency adds
+    errors: torch.Tensor         # i32 failed claims attributed here
+    shed: torch.Tensor           # i32 CoDel sheds attributed here
+    active: torch.Tensor         # bool: row carries traffic (feeds SLO)
+    eligible: torch.Tensor       # bool: row may be judged gray
+    reset: torch.Tensor          # bool: row newly (re)assigned
+    now_ms: torch.Tensor         # 0-dim f32 clock (ms)
+
+
+#: dtype of each HealthState / HealthInputs field.
+STATE_DTYPES = dict(
+    ewma_ms=_F32, lat_hist=_F32, gray_streak=_I32, ok_streak=_I32,
+    gray=torch.bool, burn_fast_err=_F32, burn_slow_err=_F32,
+    burn_fast_lat=_F32, burn_slow_lat=_F32, epoch=_I32, now_ms=_F32)
+INPUT_DTYPES = dict(
+    lat_sum=_F32, lat_count=_I32, lat_buckets=_I32, claim_buckets=_I32,
+    errors=_I32, shed=_I32, active=torch.bool, eligible=torch.bool,
+    reset=torch.bool, now_ms=_F32)
+
+
+def health_init(n_backends: int, epoch: int = 0, device=None) -> HealthState:
+    dev = resolve_device(device)
+    vals = {}
+    for name, dtype in STATE_DTYPES.items():
+        if name == 'lat_hist':
+            shape = (n_backends, LAT_BINS)
+        elif name in ('ewma_ms', 'gray_streak', 'ok_streak', 'gray'):
+            shape = (n_backends,)
+        else:
+            shape = ()
+        vals[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    vals['epoch'].fill_(epoch)
+    return HealthState(**vals)
+
+
+def health_inputs(n_backends: int, device=None, **kw) -> HealthInputs:
+    """A HealthInputs of idle defaults; override any field by keyword
+    with a tensor, array or number, cast to the field's dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for name, dtype in INPUT_DTYPES.items():
+        if name in kw:
+            v = torch.as_tensor(kw[name], dtype=dtype, device=dev)
+        elif name in ('lat_buckets', 'claim_buckets'):
+            v = torch.zeros((n_backends, LAT_BINS), dtype=dtype, device=dev)
+        elif name == 'now_ms':
+            v = torch.zeros((), dtype=dtype, device=dev)
+        else:
+            v = torch.zeros((n_backends,), dtype=dtype, device=dev)
+        out[name] = v
+    return HealthInputs(**out)
+
+
+def latency_bucket(ms: float) -> int:
+    """The sketch bucket for one latency (host-side mirror of the
+    device geometry; also resolves SLO thresholds on the host)."""
+    if not ms > 0.0:
+        return 0
+    return min(int(math.log2(1.0 + ms) * BUCKET_SCALE), LAT_BINS - 1)
+
+
+# -- the law ----------------------------------------------------------------
+
+def _observe_local(state: HealthState, inp: HealthInputs):
+    """Per-backend pre-reduction work: EWMA + sketch update and the
+    integer log-latency score."""
+    mean = inp.lat_sum / torch.clamp_min(inp.lat_count.to(_F32), 1.0)
+    have = inp.active & (inp.lat_count > 0)
+    prev = torch.where(inp.reset, 0.0, state.ewma_ms)
+    ewma = torch.where(
+        have,
+        torch.where(prev > 0.0, prev + EWMA_ALPHA * (mean - prev), mean),
+        prev)
+    hist = torch.where(inp.reset[:, None], 0.0, state.lat_hist)
+    hist = hist * SKETCH_DECAY + inp.lat_buckets.to(_F32)
+    score = torch.clamp(
+        torch.round(SCORE_SCALE * torch.log2(1.0 + ewma)),
+        0, SCORE_BINS - 1).to(_I32)
+    considered = inp.eligible & ~inp.reset & (ewma > 0.0)
+    return ewma, hist, score, considered
+
+
+def _bin_counts(bins: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[SCORE_BINS] int32 histogram: weights summed by bin. Integer
+    adds, so the counts do not depend on their order."""
+    out = torch.zeros((SCORE_BINS,), dtype=_I32, device=bins.device)
+    return out.scatter_add_(0, bins.to(torch.int64), weights.to(_I32))
+
+
+def _health_sums(inp: HealthInputs, score, considered) -> dict:
+    """Reduction terms. Everything a VERDICT depends on is an int32 sum
+    (score/latency histograms, counts)."""
+    act = inp.active
+    return {
+        'score_hist': _bin_counts(score, considered),
+        'n': torch.sum(considered, dtype=_I32),
+        'claim_hist': torch.sum(inp.claim_buckets * act[:, None], dim=0,
+                                dtype=_I32),
+        'ok': torch.sum(torch.where(act, inp.lat_count, 0), dtype=_I32),
+        'errors': torch.sum(torch.where(act, inp.errors, 0), dtype=_I32),
+        'shed': torch.sum(torch.where(act, inp.shed, 0), dtype=_I32),
+    }
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True (0 if none), as jnp.argmax of a bool
+    array; torch.argmax takes no bool, hence the int cast."""
+    return torch.argmax(mask.to(_I32)).to(_I32)
+
+
+def _hist_median(hist, n):
+    """Median of an integer histogram: the first bin whose cumulative
+    count reaches rank (n+1)//2."""
+    c = torch.cumsum(hist, 0, dtype=_I32)
+    rank = torch.clamp_min((n + 1) // 2, 1)
+    return _first_true(c >= rank)
+
+
+def _deviation_hist(score, considered, med):
+    """Second-pass histogram of |score - median| (for the MAD)."""
+    dev = torch.clamp(torch.abs(score - med), 0, SCORE_BINS - 1)
+    return _bin_counts(dev, considered)
+
+
+def _judge(state: HealthState, inp: HealthInputs, ewma, hist, score,
+           considered, sums: dict, med, mad, objectives: SLOObjectives):
+    """Post-reduction verdicts on the fleet totals."""
+    enough = sums['n'] >= MIN_BASELINE
+    z = (score - med).to(_F32) / torch.clamp_min(mad, 1).to(_F32)
+    raw = (considered & enough & (z > Z_THRESHOLD)
+           & (score >= med + GRAY_FLOOR_Q))
+
+    gray_streak = torch.where(
+        raw, torch.where(inp.reset, 0, state.gray_streak) + 1, 0)
+    ok_streak = torch.where(
+        raw, 0, torch.where(inp.reset, 0, state.ok_streak) + 1)
+    prev_gray = state.gray & ~inp.reset
+    gray = torch.where(gray_streak >= ENTER_STREAK, True,
+                       torch.where(ok_streak >= EXIT_STREAK, False,
+                                   prev_gray))
+    gray = gray & considered
+
+    # SLO burn. Error objective: failed / attempted claims against the
+    # success budget. Latency objective: the fraction of claims over
+    # the declared p99 bound against its 1% budget.
+    ops = sums['ok'] + sums['errors']
+    opsf = torch.clamp_min(ops, 1).to(_F32)
+    err_rate = sums['errors'].to(_F32) / opsf
+    c = torch.cumsum(sums['claim_hist'], 0, dtype=_I32)
+    tot = c[-1]
+    rank99 = torch.clamp_min(tot - tot // 100, 1)
+    k99 = _first_true(c >= rank99)
+    p99_ms = torch.exp2((k99.to(_F32) + 1.0) / BUCKET_SCALE) - 1.0
+    kt = latency_bucket(objectives.claim_p99_ms)
+    over_frac = ((tot - c[kt]).to(_F32)
+                 / torch.clamp_min(tot, 1).to(_F32))
+    err_budget = max(1.0 - objectives.success_target, 1e-9)
+    burn_err = torch.where(ops > 0, err_rate / err_budget, 0.0)
+    burn_lat = torch.where(tot > 0, over_frac / 0.01, 0.0)
+
+    f_err = state.burn_fast_err + FAST_ALPHA * (
+        burn_err - state.burn_fast_err)
+    s_err = state.burn_slow_err + SLOW_ALPHA * (
+        burn_err - state.burn_slow_err)
+    f_lat = state.burn_fast_lat + FAST_ALPHA * (
+        burn_lat - state.burn_fast_lat)
+    s_lat = state.burn_slow_lat + SLOW_ALPHA * (
+        burn_lat - state.burn_slow_lat)
+
+    epoch = state.epoch + 1
+    new_state = HealthState(
+        ewma_ms=ewma, lat_hist=hist, gray_streak=gray_streak,
+        ok_streak=ok_streak, gray=gray,
+        burn_fast_err=f_err, burn_slow_err=s_err,
+        burn_fast_lat=f_lat, burn_slow_lat=s_lat,
+        epoch=epoch, now_ms=inp.now_ms)
+    verdicts = {
+        'gray': gray,
+        'z': z,
+        'score': score,
+        'ewma_ms': ewma,
+        'epoch': epoch,
+    }
+    fleet = {
+        'n_backends': sums['n'],
+        'median_score': med,
+        'mad_score': mad,
+        'claim_p99_ms': p99_ms,
+        'err_rate': err_rate,
+        'over_frac': over_frac,
+        'ops': ops,
+        'errors': sums['errors'],
+        'shed': sums['shed'],
+        'burn_fast': torch.maximum(f_err, f_lat),
+        'burn_slow': torch.maximum(s_err, s_lat),
+        'alert_page': (f_err > FAST_BURN_ALERT) | (f_lat > FAST_BURN_ALERT),
+        'alert_ticket': (s_err > SLOW_BURN_ALERT)
+        | (s_lat > SLOW_BURN_ALERT),
+    }
+    return new_state, verdicts, fleet
+
+
+def _make_law(objectives: SLOObjectives):
+    """The single-device health step with the objectives fixed."""
+    def step(state: HealthState, inp: HealthInputs):
+        ewma, hist, score, considered = _observe_local(state, inp)
+        sums = _health_sums(inp, score, considered)
+        med = _hist_median(sums['score_hist'], sums['n'])
+        dev = _deviation_hist(score, considered, med)
+        mad = _hist_median(dev, sums['n'])
+        new_state, verdicts, fleet = _judge(
+            state, inp, ewma, hist, score, considered, sums, med, mad,
+            objectives)
+        fleet['n_gray'] = torch.sum(verdicts['gray'], dtype=_I32)
+        return new_state, verdicts, fleet
+    return step
+
+
+#: One health tick for the whole fleet under DEFAULT_OBJECTIVES.
+#: Returns (new_state, verdicts, fleet).
+health_step = _make_law(DEFAULT_OBJECTIVES)
+
+
+@functools.lru_cache(maxsize=None)
+def make_health_step(mesh=None,
+                     objectives: SLOObjectives = DEFAULT_OBJECTIVES):
+    """The live health step on one device, memoized per objectives.
+    ``mesh=`` is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    return _make_law(objectives)
+
+
+# -- host attribution table -------------------------------------------------
+
+class BackendTable:
+    """Per-backend accumulation columns, fed by the host's backend
+    sinks.
+
+    Rows are keyed by ``host.backend_index``; row 0 is the reserved
+    unattributed bucket (key ``''``). Implements the backend-sink
+    protocol (``observe`` / ``observe_shed``, called on any thread);
+    ``drain`` hands one tick's columns to the monitor and zeroes the
+    accumulators atomically."""
+
+    __slots__ = ('bt_lock', 'bt_host', 'bt_lat_sum', 'bt_lat_count',
+                 'bt_lat_buckets', 'bt_claim_buckets', 'bt_errors',
+                 'bt_shed', 'bt_seen', 'bt_fresh')
+
+    def __init__(self, capacity: int = 8, host=None):
+        self.bt_lock = threading.Lock()
+        self.bt_host = host or default_host
+        n = max(int(capacity), 1)
+        self.bt_lat_sum = np.zeros(n, np.float64)
+        self.bt_lat_count = np.zeros(n, np.int64)
+        self.bt_lat_buckets = np.zeros((n, LAT_BINS), np.int64)
+        self.bt_claim_buckets = np.zeros((n, LAT_BINS), np.int64)
+        self.bt_errors = np.zeros(n, np.int64)
+        self.bt_shed = np.zeros(n, np.int64)
+        self.bt_seen = np.zeros(n, bool)
+        self.bt_fresh: set = set()
+
+    def _row(self, key) -> int:
+        row = self.bt_host.backend_index(key or '')
+        if row >= len(self.bt_lat_sum):
+            self._grow(row + 1)
+        if not self.bt_seen[row]:
+            self.bt_seen[row] = True
+            self.bt_fresh.add(row)
+        return row
+
+    def _grow(self, need: int):
+        n = len(self.bt_lat_sum)
+        while n < need:
+            n *= 2
+        pad = n - len(self.bt_lat_sum)
+        for name in ('bt_lat_sum', 'bt_lat_count', 'bt_lat_buckets',
+                     'bt_claim_buckets', 'bt_errors', 'bt_shed', 'bt_seen'):
+            col = getattr(self, name)
+            widths = [(0, pad)] + [(0, 0)] * (col.ndim - 1)
+            setattr(self, name, np.pad(col, widths))
+
+    # -- the backend-sink protocol (host.add_backend_sink) -------------
+
+    def observe(self, key, service_ms, claim_ms, ok: bool):
+        """One finished claim: `service_ms` is the lease (in-service)
+        duration for successful claims, `claim_ms` the whole claim
+        span; either may be None when the span never got there."""
+        with self.bt_lock:
+            row = self._row(key)
+            if ok and service_ms is not None:
+                self.bt_lat_sum[row] += float(service_ms)
+                self.bt_lat_count[row] += 1
+                self.bt_lat_buckets[
+                    row, latency_bucket(float(service_ms))] += 1
+            elif not ok:
+                self.bt_errors[row] += 1
+            if claim_ms is not None:
+                self.bt_claim_buckets[
+                    row, latency_bucket(float(claim_ms))] += 1
+
+    def observe_shed(self, key):
+        with self.bt_lock:
+            self.bt_shed[self._row(key)] += 1
+
+    def drain(self) -> dict:
+        """Swap out one tick's columns (numpy, host-side) and zero the
+        accumulators. 'active'/'eligible'/'reset' are the step's row
+        masks; the row count is whatever the table has grown to."""
+        with self.bt_lock:
+            n = len(self.bt_lat_sum)
+            out = {
+                'lat_sum': self.bt_lat_sum.astype(np.float32),
+                'lat_count': self.bt_lat_count.astype(np.int32),
+                'lat_buckets': self.bt_lat_buckets.astype(np.int32),
+                'claim_buckets': self.bt_claim_buckets.astype(np.int32),
+                'errors': self.bt_errors.astype(np.int32),
+                'shed': self.bt_shed.astype(np.int32),
+                'active': self.bt_seen.copy(),
+            }
+            eligible = self.bt_seen.copy()
+            eligible[0] = False
+            out['eligible'] = eligible
+            reset = np.zeros(n, bool)
+            reset[list(self.bt_fresh)] = True
+            out['reset'] = reset
+            self.bt_fresh = set()
+            for col in (self.bt_lat_sum, self.bt_lat_count,
+                        self.bt_lat_buckets, self.bt_claim_buckets,
+                        self.bt_errors, self.bt_shed):
+                col[:] = 0
+        return out
+
+
+#: Gauge families the monitor publishes.
+_HEALTH_GAUGES = {
+    'cueball_backend_health':
+        'backend verdict: 0 healthy, 1 flagged gray',
+    'cueball_backend_latency_ewma_ms':
+        'EWMA of mean claim service latency per backend (ms)',
+    'cueball_slo_burn_rate':
+        'SLO burn rate (budget multiples) per objective and window',
+}
+
+_MONITORS: list = []
+_MONITORS_LOCK = threading.Lock()
+
+
+class HealthMonitor:
+    """Drives the health step over a BackendTable and publishes its
+    verdicts: gauges, the snapshot and (via :func:`reduce_health`) a
+    fleet merge.
+
+    Options: ``objectives`` (SLOObjectives), ``collector`` (metrics
+    Collector; falls back to ``host.active_collector()``), ``shard``
+    (gauge label), ``history`` (verdict ring length), ``interval``
+    (advisory tick period, ms; the owner calls :meth:`tick`),
+    ``table`` (a BackendTable), ``host`` (the host seam, default
+    ``cueball_tpu_torch.host``) and ``device`` (default CUDA, which
+    must exist). ``mesh`` is not ported yet and raises."""
+
+    def __init__(self, options: dict | None = None):
+        options = dict(options or {})
+        if options.get('mesh') is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        self.hm_device = resolve_device(options.get('device'))
+        self.hm_host = options.get('host') or default_host
+        self.hm_objectives: SLOObjectives = (
+            options.get('objectives') or DEFAULT_OBJECTIVES)
+        self.hm_collector = options.get('collector')
+        self.hm_shard = options.get('shard')
+        self.hm_interval = float(options.get('interval', 1000.0))
+        self.hm_table = options.get('table') or BackendTable(
+            host=self.hm_host)
+        self.hm_history: collections.deque = collections.deque(
+            maxlen=int(options.get('history', 64)))
+        self.hm_state: HealthState | None = None
+        self.hm_rows = 0
+        self.hm_last: dict | None = None
+        self.hm_started = False
+
+    # -- lifecycle -----------------------------------------------------
+
+    def start(self) -> 'HealthMonitor':
+        """Attach the table to the host's backend sinks and register on
+        the module's active-monitor list."""
+        if not self.hm_started:
+            self.hm_host.add_backend_sink(self.hm_table)
+            with _MONITORS_LOCK:
+                _MONITORS.append(self)
+            self.hm_started = True
+        return self
+
+    def stop(self):
+        if self.hm_started:
+            self.hm_host.remove_backend_sink(self.hm_table)
+            with _MONITORS_LOCK:
+                if self in _MONITORS:
+                    _MONITORS.remove(self)
+            self.hm_started = False
+
+    # -- the tick ------------------------------------------------------
+
+    @staticmethod
+    def _rows_for(n: int) -> int:
+        rows = 8
+        while rows < n:
+            rows *= 2
+        return rows
+
+    @staticmethod
+    def _pad_state(state: HealthState, rows: int) -> HealthState:
+        def pad(leaf):
+            if leaf.dim() == 0:
+                return leaf
+            fill = leaf.new_zeros((rows - leaf.shape[0],) + leaf.shape[1:])
+            return torch.cat([leaf, fill])
+        return HealthState(*(pad(leaf) for leaf in state))
+
+    def tick(self, now_ms: float | None = None) -> dict:
+        """Drain the table, run one judged step, publish verdicts.
+        Returns the host-side record (also kept as ``hm_last``)."""
+        host = self.hm_host
+        if now_ms is None:
+            now_ms = host.current_millis()
+        # A native recorder attributes lazily: completed claims sit in
+        # its ring until a drain replays them into the sinks.
+        host.drain_native()
+        cols = self.hm_table.drain()
+        rows = self._rows_for(len(cols['lat_sum']))
+        if self.hm_state is None:
+            self.hm_state = health_init(rows, device=self.hm_device)
+        elif rows != self.hm_rows:
+            self.hm_state = self._pad_state(self.hm_state, rows)
+        self.hm_rows = rows
+
+        inp = health_inputs(
+            rows, now_ms=np.float32(now_ms % (2.0 ** 20)),
+            device=self.hm_device, **fold_backend_slots(cols, rows))
+        step = make_health_step(objectives=self.hm_objectives)
+        state = self.hm_state
+        # As the JAX monitor (whose step donates the state): a failed
+        # step restarts from a fresh state next tick.
+        self.hm_state = None
+        new_state, verdicts, fleet = step(state, inp)
+        self.hm_state = new_state
+        return self._publish(verdicts, fleet, now_ms)
+
+    def _publish(self, verdicts, fleet, now_ms: float) -> dict:
+        v = {k: x.cpu().numpy() for k, x in verdicts.items()}
+        f = to_host_values(fleet)
+        backends = {}
+        for row in np.nonzero(v['gray'] | (v['ewma_ms'] > 0.0))[0]:
+            key = self.hm_host.backend_key_for(int(row))
+            if key is None:
+                continue
+            backends[key or '(unattributed)'] = {
+                'gray': bool(v['gray'][row]),
+                'z': float(v['z'][row]),
+                'score': int(v['score'][row]),
+                'ewma_ms': float(v['ewma_ms'][row]),
+            }
+        record = {
+            'epoch': int(v['epoch']),
+            'at_ms': float(now_ms),
+            'backends': backends,
+            'gray': sorted(k for k, b in backends.items() if b['gray']),
+            'fleet': f,
+        }
+        self.hm_last = record
+        self.hm_history.append({
+            'epoch': record['epoch'], 'at_ms': record['at_ms'],
+            'gray': record['gray'], 'n_gray': f['n_gray'],
+            'burn_fast': f['burn_fast'], 'burn_slow': f['burn_slow'],
+            'alert_page': f['alert_page'],
+            'alert_ticket': f['alert_ticket'],
+        })
+
+        collector = self.hm_collector
+        if collector is None:
+            collector = self.hm_host.active_collector()
+        if collector is not None:
+            shard = ({'shard': str(self.hm_shard)}
+                     if self.hm_shard is not None else {})
+            hg = _HEALTH_GAUGES
+            for key, b in backends.items():
+                labels = dict(shard, backend=key)
+                collector.gauge(
+                    'cueball_backend_health',
+                    hg['cueball_backend_health']).set(
+                        1.0 if b['gray'] else 0.0, labels)
+                collector.gauge(
+                    'cueball_backend_latency_ewma_ms',
+                    hg['cueball_backend_latency_ewma_ms']).set(
+                        b['ewma_ms'], labels)
+            burn = collector.gauge('cueball_slo_burn_rate',
+                                   hg['cueball_slo_burn_rate'])
+            burn.set(f['burn_fast'],
+                     dict(shard, objective='success', window='fast'))
+            burn.set(f['burn_slow'],
+                     dict(shard, objective='success', window='slow'))
+        return record
+
+    # -- surfaces ------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The health snapshot row for this monitor."""
+        return {
+            'objectives': {
+                'success_target': self.hm_objectives.success_target,
+                'claim_p99_ms': self.hm_objectives.claim_p99_ms,
+            },
+            'shard': self.hm_shard,
+            'interval_ms': self.hm_interval,
+            'last': self.hm_last,
+            'history': list(self.hm_history),
+        }
+
+
+def active_monitors() -> list:
+    """Every started HealthMonitor in this process (newest last)."""
+    with _MONITORS_LOCK:
+        return list(_MONITORS)
+
+
+def health_snapshot() -> dict:
+    """One row per active monitor plus the fleet merge (the shape
+    reduce_health gives)."""
+    monitors = active_monitors()
+    return {
+        'n_monitors': len(monitors),
+        'monitors': [m.snapshot() for m in monitors],
+        'fleet': reduce_health([m.hm_last for m in monitors]),
+    }
+
+
+def reduce_health(records) -> dict:
+    """Combine per-shard health records (HealthMonitor.tick dicts) into
+    one fleet row: gray sets union, counts sum, rates combine weighted
+    by ops, burn rates and p99 take the worst shard."""
+    records = [r for r in records if r]
+    out = {'n_backends': 0, 'n_gray': 0, 'gray': [],
+           'ops': 0, 'errors': 0, 'shed': 0, 'err_rate': 0.0,
+           'claim_p99_ms': 0.0, 'burn_fast': 0.0, 'burn_slow': 0.0,
+           'alert_page': False, 'alert_ticket': False}
+    if not records:
+        return out
+    gray: set = set()
+    tot_ops = sum(int(r['fleet']['ops']) for r in records)
+    safe = float(tot_ops) if tot_ops > 0 else 1.0
+    for r in records:
+        f = r['fleet']
+        gray.update(r.get('gray', ()))
+        out['n_backends'] += int(f['n_backends'])
+        for k in ('ops', 'errors', 'shed'):
+            out[k] += int(f[k])
+        out['err_rate'] += float(f['err_rate']) * int(f['ops']) / safe
+        out['claim_p99_ms'] = max(out['claim_p99_ms'],
+                                  float(f['claim_p99_ms']))
+        out['burn_fast'] = max(out['burn_fast'], float(f['burn_fast']))
+        out['burn_slow'] = max(out['burn_slow'], float(f['burn_slow']))
+        out['alert_page'] |= bool(f['alert_page'])
+        out['alert_ticket'] |= bool(f['alert_ticket'])
+    out['gray'] = sorted(gray)
+    out['n_gray'] = len(gray)
+    return out

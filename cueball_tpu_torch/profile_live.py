@@ -1,15 +1,24 @@
-"""Where the live telemetry tick's device time goes, on the card.
+"""Where the fleet runtime's device time goes, on the card.
 
     python -m cueball_tpu_torch.profile_live
 
-Runs the live step (``make_live_step``) at 1,048,576 pools, 128 taps:
-10 warm-up ticks, then 20 ticks under ``torch.profiler`` with CUDA
-activity. Prints the device time of every kernel and copy by name (sum
-over the profiled ticks, per tick, share of the device-busy time), the
-tick time by CUDA events, and the device's busy and idle shares of it.
-The tick inputs are made before the profiled window, so it holds only
-the step. Exits 1 without a CUDA device, or if the trace holds no
-device events.
+Profiles four steps under ``torch.profiler`` with CUDA activity, each
+after warm-up ticks, with its inputs made before the profiled window:
+
+- ``live``: the live telemetry step (``make_live_step``) at 1,048,576
+  pools, 128 taps, 20 ticks;
+- ``control``: the control step at 1,048,576 pools, 20 steps;
+- ``health``: the health step at 102,400 backends, 20 steps;
+- ``sampler``: ``FleetSampler.sample_once`` with control and health on
+  over ``entry.SamplerWorkload`` at 65,536 pools (``chip_smoke.py``'s
+  phase 9 workload: CoDel queues, waiting claims, 1% of pools changing
+  load and 512 attributed claims per tick), 20 ticks.
+
+For each it prints the device time of every kernel and copy by name
+(per tick, launches per tick, share of the device-busy time), then one
+JSON line per step: the tick time by CUDA events, the device's busy
+time, idle share and launches per tick. Exits 1 without a CUDA device,
+or if a trace holds no device events.
 """
 
 from __future__ import annotations
@@ -22,37 +31,34 @@ import numpy as np
 import torch
 
 POOLS = 1 << 20
+BACKENDS = 102_400
+SAMPLER_POOLS = 1 << 16
 WARMUP, TICKS = 10, 20
+TOP = 15
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print('profile_live: no CUDA device', file=sys.stderr)
-        return 1
+class NoDeviceEvents(Exception):
+    pass
+
+
+def _profile(name: str, ticks: list) -> dict:
+    """Profile ``tick()`` for each callable of ``ticks``; returns the
+    step's summary after printing its kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from .entry import example_inputs, tick_inputs
-    from .parallel.telemetry import make_live_step
-
-    rng = np.random.default_rng(5)
-    state, base = example_inputs(POOLS, seed=5)
-    ticks = [tick_inputs(base, rng, k) for k in range(WARMUP + TICKS)]
-    live = make_live_step()
-    for inp in ticks[:WARMUP]:
-        state, _, _ = live(state, inp)
     torch.cuda.synchronize()
-
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        for inp in ticks[WARMUP:]:
-            state, _, _ = live(state, inp)
+        for tick in ticks:
+            tick()
         end.record()
         torch.cuda.synchronize()
     wall_us = start.elapsed_time(end) * 1e3
+    n = len(ticks)
 
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
@@ -62,25 +68,113 @@ def main() -> int:
             rec[1] += 1
     busy_us = sum(v[0] for v in by_name.values())
     if busy_us <= 0:
-        print('profile_live: the trace holds no device events',
-              file=sys.stderr)
-        return 1
+        raise NoDeviceEvents('the %s trace holds no device events' % name)
 
+    print('== %s' % name)
     print('%10s %8s %7s  %s' % ('us/tick', 'calls', 'share', 'kernel'))
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for name, (us, calls) in rows:
-        print('%10.2f %8.2f %6.1f%%  %s' % (us / TICKS, calls / TICKS,
-                                           100.0 * us / busy_us, name[:110]))
-    summary = {
-        'pools': POOLS, 'ticks': TICKS,
-        'tick_ms': wall_us / TICKS / 1e3,
-        'device_busy_ms_per_tick': busy_us / TICKS / 1e3,
+    for kname, (us, calls) in rows[:TOP]:
+        print('%10.2f %8.2f %6.1f%%  %s' % (us / n, calls / n,
+                                           100.0 * us / busy_us, kname[:110]))
+    if len(rows) > TOP:
+        rest = rows[TOP:]
+        print('%10.2f %8.2f %6.1f%%  (%d more kernels)' % (
+            sum(v[0] for _, v in rest) / n, sum(v[1] for _, v in rest) / n,
+            100.0 * sum(v[0] for _, v in rest) / busy_us, len(rest)))
+    return {
+        'step': name, 'ticks': n,
+        'tick_ms': wall_us / n / 1e3,
+        'device_busy_ms_per_tick': busy_us / n / 1e3,
         'device_idle_share': max(0.0, 1.0 - busy_us / wall_us),
-        'device_launches_per_tick': sum(v[1] for v in by_name.values())
-        / TICKS,
+        'device_launches_per_tick': sum(v[1] for v in by_name.values()) / n,
         'kind': torch.cuda.get_device_name(0),
     }
-    print(json.dumps(summary))
+
+
+def _live():
+    from .entry import example_inputs, tick_inputs
+    from .parallel.telemetry import make_live_step
+
+    rng = np.random.default_rng(5)
+    st, base = example_inputs(POOLS, seed=5)
+    inputs = [tick_inputs(base, rng, k) for k in range(WARMUP + TICKS)]
+    live = make_live_step()
+    state = [st]
+
+    def tick(inp):
+        state[0] = live(state[0], inp)[0]
+    for inp in inputs[:WARMUP]:
+        tick(inp)
+    return [lambda inp=inp: tick(inp) for inp in inputs[WARMUP:]]
+
+
+def _control():
+    from .parallel import control as ctl
+
+    rng = np.random.default_rng(6)
+    n = POOLS
+    inputs = []
+    for k in range(WARMUP + TICKS):
+        inputs.append(ctl.control_inputs(
+            n, samples=rng.uniform(0, 8, n), sojourns=rng.uniform(0, 600, n),
+            filtered=rng.uniform(0, 8, n), target_delay=300.0, spares=2.0,
+            maximum=16.0, active=True, reset=rng.uniform(size=n) < 0.05,
+            now_ms=200.0 * (k + 1)))
+    step = ctl.make_control_step()
+    state = [ctl.control_init(n)]
+
+    def tick(inp):
+        state[0] = step(state[0], inp)[0]
+    for inp in inputs[:WARMUP]:
+        tick(inp)
+    return [lambda inp=inp: tick(inp) for inp in inputs[WARMUP:]]
+
+
+def _health():
+    from .entry import health_example_columns
+    from .parallel import health as hl
+
+    inp = hl.health_inputs(BACKENDS, now_ms=np.float32(1000.0),
+                           **health_example_columns(BACKENDS))
+    step = hl.make_health_step()
+    state = [hl.health_init(BACKENDS)]
+
+    def tick():
+        state[0] = step(state[0], inp)[0]
+    for _ in range(WARMUP):
+        tick()
+    return [tick] * TICKS
+
+
+def _sampler():
+    from .entry import SamplerWorkload
+    from .parallel.sampler import FleetSampler
+
+    work = SamplerWorkload(SAMPLER_POOLS)
+    s = FleetSampler(work.options())
+
+    def tick():
+        work.advance()
+        s.sample_once()
+    for _ in range(WARMUP):
+        tick()
+    return [tick] * TICKS
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('profile_live: no CUDA device', file=sys.stderr)
+        return 1
+    summaries = []
+    for name, make in (('live', _live), ('control', _control),
+                       ('health', _health), ('sampler', _sampler)):
+        try:
+            summaries.append(_profile(name, make()))
+        except NoDeviceEvents as e:
+            print('profile_live: %s' % e, file=sys.stderr)
+            return 1
+    for summary in summaries:
+        print(json.dumps(summary))
     return 0
 
 

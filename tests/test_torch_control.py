@@ -1,0 +1,149 @@
+"""Parity of the PyTorch port's control step with the JAX one.
+
+Both packages step from the same state on identical seeded numpy
+inputs, on the CPU. The decision columns (`codel_target`,
+`plan_spares`, `plan_target`, `delta`, `epoch`) and the carried
+`targets` agree bit for bit, since every reduction that feeds a
+decision is an int32 sum or a max; `mean_load`, a float sum, agrees to
+rtol 1e-5. The host-side actuation helpers are ported as they are.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip('jax')
+torch = pytest.importorskip('torch')
+
+from cueball_tpu.parallel import control as jctl  # noqa: E402
+from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch.parallel import control as tctl  # noqa: E402
+
+CPU = 'cpu'
+SOAK_ROWS = 4096
+SOAK_STEPS = 4
+
+
+def soak_inputs(rng, n, step):
+    """One tick's adversarial columns as numpy (the law of
+    tests/test_control.py's soak): a third of the fleet CoDel-less,
+    sojourns straddling the targets, occasional resets."""
+    target = np.where(rng.random(n) < 0.33, np.inf,
+                      rng.integers(50, 800, n).astype(np.float64))
+    return dict(
+        samples=(rng.random(n) * 12.0).astype(np.float32),
+        sojourns=(rng.random(n) * 900.0).astype(np.float32),
+        filtered=(rng.random(n) * 10.0).astype(np.float32),
+        target_delay=target.astype(np.float32),
+        spares=rng.integers(0, 6, n).astype(np.float32),
+        maximum=rng.integers(6, 20, n).astype(np.float32),
+        active=rng.random(n) < 0.9,
+        reset=rng.random(n) < 0.02,
+        now_ms=np.float32(1000.0 * (step + 1)))
+
+
+def test_soak_decisions_bit_identical_to_jax():
+    rng = np.random.default_rng(11)
+    j_state = jctl.control_init(SOAK_ROWS)
+    t_state = tctl.control_init(SOAK_ROWS, device=CPU)
+    step = tctl.make_control_step()
+    moved = 0
+    for k in range(SOAK_STEPS):
+        cols = soak_inputs(rng, SOAK_ROWS, k)
+        j_inp = jctl.control_inputs(SOAK_ROWS, **cols)
+        t_inp = tctl.control_inputs(SOAK_ROWS, device=CPU, **cols)
+        j_state, j_dec, j_fleet = jctl.control_step(j_state, j_inp)
+        t_state, t_dec, t_fleet = step(t_state, t_inp)
+        for name, want in j_dec.items():
+            want = np.asarray(want)
+            got = t_dec[name].numpy()
+            assert got.dtype == want.dtype, (k, name)
+            np.testing.assert_array_equal(got, want, err_msg='%d %s'
+                                          % (k, name))
+        np.testing.assert_array_equal(t_state.targets.numpy(),
+                                      np.asarray(j_state.targets))
+        assert t_state.epoch.dtype == torch.int32
+        assert int(t_state.epoch) == k + 1
+        for name in ('n_pools', 'pressure', 'max_sojourn'):
+            assert float(t_fleet[name]) == float(j_fleet[name]), name
+        assert float(t_fleet['mean_load']) == pytest.approx(
+            float(j_fleet['mean_load']), rel=1e-5)
+        moved += int((t_dec['codel_target'].numpy() > 0).sum())
+    # The soak judged both sides of the law.
+    assert moved > 0
+    assert np.any(t_dec['delta'].numpy() != 0)
+
+
+def test_state_and_inputs_carry_across_from_jax():
+    """A JAX state and inputs carried over with convert step to the
+    same decisions as stepping in JAX."""
+    rng = np.random.default_rng(12)
+    n = 64
+    j_state = jctl.control_init(n, epoch=41)
+    j_state = j_state._replace(targets=jax.numpy.asarray(
+        rng.integers(0, 400, n).astype(np.float32)))
+    j_inp = jctl.control_inputs(n, **soak_inputs(rng, n, 0))
+    host = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    t_state = convert.control_state_from_numpy(host(j_state), device=CPU)
+    t_inp = convert.control_inputs_from_numpy(host(j_inp), device=CPU)
+    assert t_inp.active.dtype == torch.bool
+    assert t_state.epoch.dtype == torch.int32
+    _, j_dec, _ = jctl.control_step(j_state, j_inp)
+    _, t_dec, _ = tctl.control_step(t_state, t_inp)
+    for name, want in j_dec.items():
+        np.testing.assert_array_equal(t_dec[name].numpy(), np.asarray(want))
+    assert int(t_dec['epoch']) == 42
+
+
+def test_defaults_to_cuda_and_mesh_is_not_ported():
+    if torch.cuda.is_available():
+        assert tctl.control_init(4).targets.device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='CUDA'):
+            tctl.control_init(4)
+    with pytest.raises(NotImplementedError, match='A6'):
+        tctl.make_control_step(mesh=object())
+
+
+class FakePool:
+    def __init__(self, accept=True):
+        self.accept = accept
+        self.calls = []
+
+    def apply_control_decision(self, epoch, codel_target=None,
+                               spares=None, at_ms=None):
+        self.calls.append((epoch, codel_target, spares, at_ms))
+        return self.accept
+
+
+@pytest.mark.parametrize('as_tensor', [False, True])
+def test_apply_decisions_counts_and_zero_target(as_tensor):
+    decisions = {
+        'codel_target': np.asarray([150.0, 0.0, 200.0], np.float32),
+        'plan_spares': np.asarray([2, 3, 4], np.int32),
+        'epoch': np.int32(7),
+    }
+    if as_tensor:
+        decisions = {k: torch.as_tensor(v) for k, v in decisions.items()}
+    ok, nope = FakePool(True), FakePool(False)
+    res = tctl.apply_decisions(
+        {0: ok, 1: nope, 2: object()}, decisions, at_ms=50.0)
+    assert res == {'applied': 1, 'rejected': 1, 'skipped': 1, 'epoch': 7}
+    # 0.0 in the column means "no CoDel decision", passed as None.
+    assert ok.calls == [(7, 150.0, 2, 50.0)]
+    assert nope.calls == [(7, None, 3, 50.0)]
+
+
+def test_reduce_control_weights_by_pool_count():
+    a = {'fleet': {'n_pools': 3.0, 'pressure': 1.0, 'mean_load': 2.0,
+                   'max_sojourn': 10.0}, 'applied': 2, 'rejected': 1}
+    b = {'fleet': {'n_pools': 1.0, 'pressure': 0.0, 'mean_load': 6.0,
+                   'max_sojourn': 40.0}, 'applied': 1, 'skipped': 3}
+    out = tctl.reduce_control([a, None, b])
+    assert out == jctl.reduce_control([a, None, b])
+    assert out['n_pools'] == 4.0
+    assert out['pressure'] == pytest.approx(0.75)
+    assert out['mean_load'] == pytest.approx(3.0)
+    assert out['max_sojourn'] == 40.0
+    assert (out['applied'], out['rejected'], out['skipped']) == (3, 1, 3)
+    empty = tctl.reduce_control([])
+    assert empty['n_pools'] == 0.0 and empty['applied'] == 0

@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port on the card: the CUDA kernel against its plain version, the
+control and health steps against their CPU runs, and the live sampler
+through the kernel.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
@@ -10,9 +12,16 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.ops import fir  # noqa: E402
+from cueball_tpu_torch.parallel import control as ctl  # noqa: E402
+from cueball_tpu_torch.parallel import health as hl  # noqa: E402
 from cueball_tpu_torch.parallel import telemetry as tel  # noqa: E402
-from cueball_tpu_torch.entry import example_inputs, tick_inputs  # noqa: E402
+from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
+from cueball_tpu_torch.entry import (SyntheticPool,  # noqa: E402
+                                     example_inputs,
+                                     health_example_columns, tick_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +72,74 @@ def test_fleet_step_on_card_uses_kernel(card):
         assert torch.equal(out['drop'], r_out['drop'])
         assert torch.equal(state.windows, ref.windows)
     assert fir.fir_apply_cuda.launches == before + 4
+
+
+def _cpu(tree):
+    return type(tree)(*(t.cpu() for t in tree))
+
+
+def test_control_step_on_card_matches_cpu(card):
+    rng = np.random.default_rng(4)
+    n = 65536
+    state = ctl.control_init(n, device=card)
+    ref = ctl.control_init(n, device='cpu')
+    step = ctl.make_control_step()
+    for k in range(4):
+        target = np.where(rng.random(n) < 0.33, np.inf,
+                          rng.integers(50, 800, n).astype(np.float64))
+        inp = ctl.control_inputs(
+            n, device=card, samples=rng.random(n) * 12.0,
+            sojourns=rng.random(n) * 900.0, filtered=rng.random(n) * 10.0,
+            target_delay=target, spares=rng.integers(0, 6, n),
+            maximum=rng.integers(6, 20, n), active=rng.random(n) < 0.9,
+            reset=rng.random(n) < 0.02, now_ms=1000.0 * (k + 1))
+        state, dec, fleet = step(state, inp)
+        ref, r_dec, r_fleet = step(ref, _cpu(inp))
+        for name in dec:
+            assert torch.equal(dec[name].cpu(), r_dec[name]), name
+        assert torch.equal(state.targets.cpu(), ref.targets)
+        torch.testing.assert_close(fleet['mean_load'].cpu(),
+                                   r_fleet['mean_load'], rtol=1e-5, atol=0)
+
+
+def test_health_step_on_card_matches_cpu(card):
+    n = 10240
+    cols = dict(health_example_columns(n), now_ms=np.float32(1000.0))
+    state = hl.health_init(n, device=card)
+    ref = hl.health_init(n, device='cpu')
+    for _ in range(hl.ENTER_STREAK + 1):
+        state, v, f = hl.health_step(state, hl.health_inputs(
+            n, device=card, **cols))
+        ref, rv, rf = hl.health_step(ref, hl.health_inputs(
+            n, device='cpu', **cols))
+        off = torch.as_tensor(~convert.health_score_near_boundary(
+            rv['ewma_ms'].numpy()))
+        for name in ('gray', 'score'):
+            assert torch.equal(v[name].cpu()[off], rv[name][off]), name
+        for name in ('n_backends', 'median_score', 'mad_score', 'n_gray',
+                     'ops', 'errors'):
+            assert torch.equal(f[name].cpu(), rf[name]), name
+        torch.testing.assert_close(v['ewma_ms'].cpu(), rv['ewma_ms'],
+                                   rtol=1e-5, atol=1e-6)
+    assert int(f['n_gray']) > 0
+
+
+def test_sampler_on_card_launches_the_fir_kernel_each_tick(card):
+    mon = PoolMonitor()
+    for i in range(300):
+        mon.register_pool(SyntheticPool(i))
+    on_card = FleetSampler({'monitor': mon, 'control': True,
+                            'health': True})
+    on_cpu = FleetSampler({'monitor': mon, 'control': True,
+                           'health': True, 'device': 'cpu'})
+    assert on_card.fs_device.type == 'cuda'
+    before = fir.fir_apply_cuda.launches
+    for k in range(5):
+        got, want = on_card.sample_once(), on_cpu.sample_once()
+        assert fir.fir_apply_cuda.launches == before + k + 1
+        for key, v in want['fleet'].items():
+            assert got['fleet'][key] == pytest.approx(v, rel=1e-5), key
+        assert got['control']['epoch'] == want['control']['epoch']
+    assert on_card.fs_state.windows.device.type == 'cuda'
+    on_card.stop()
+    on_cpu.stop()
