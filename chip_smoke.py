@@ -34,7 +34,23 @@ Phases, each of which exits non-zero on failure:
    pools, one frozen clock, attributed claims), one on the card and
    one on the CPU, for 20 ticks with 1% of pools changing load each
    tick; their records agree, CoDel drops occur, and the FIR kernel
-   launches once per tick.
+   launches once per tick;
+10. multichip dryrun: ``entry.dryrun_multichip`` over four shards that
+    share the card (a 1-D mesh and a 2x2 mesh), every mesh form of the
+    telemetry step against the unsharded step;
+11. sharded live (main path): on phase 4's seeded inputs, 50 ticks at
+    1,048,576 pools of the live step over a 4-shard mesh on the card
+    (4 x 262,144 rows) and of the shard_map step over a 2x2 mesh,
+    each against the unsharded kernel step: per-pool outputs and
+    state bit for bit, ``n_pools`` exactly, float aggregates to rtol
+    1e-5 / atol 1e-5, and the FIR kernel launched 4 times per tick;
+    the sharded control step at 1,048,576 pools and the sharded health
+    step at 102,400 backends bit for bit against their unsharded runs
+    on the card;
+12. mesh sampler (main path): phase 9's workload, one ``FleetSampler``
+    over the 4-shard mesh and one without a mesh, both on the card,
+    for 20 ticks: records equal (the float fleet aggregates, summed in
+    another order, to rtol 1e-5 / atol 1e-5), 4 FIR launches per tick.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -50,13 +66,16 @@ import numpy as np
 import torch
 
 from cueball_tpu_torch import convert
-from cueball_tpu_torch.entry import (SamplerWorkload, entry, example_inputs,
+from cueball_tpu_torch.entry import (SamplerWorkload, dryrun_multichip,
+                                     entry, example_inputs,
                                      health_example_columns, tick_inputs)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
 from cueball_tpu_torch.parallel import control as ctl
 from cueball_tpu_torch.parallel import health as hl
 from cueball_tpu_torch.parallel import telemetry as tel
+from cueball_tpu_torch.parallel.mesh import (Mesh, tree_map,
+                                             tree_map_with_path, unshard)
 from cueball_tpu_torch.parallel.sampler import FleetSampler
 
 RTOL = ATOL = 1e-5          # the tolerance of the multichip dryrun
@@ -71,6 +90,7 @@ TAPS = 128
 HEALTH_BACKENDS, HEALTH_TICKS = 102_400, 10
 SAMPLER_POOLS, SAMPLER_TICKS = 1 << 16, 20
 SAMPLER_BACKENDS = 64
+SHARDS = 4                  # mesh shards, all on the one card
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -259,6 +279,231 @@ def check_sampler_records(tag, got, want):
         check(type(g) is type(v) and abs(g - v) <= ATOL + RTOL * abs(v),
               '%s: health %s %r vs %r' % (tag, name, g, v))
     return int((~off).sum()), int(wo['drop'].sum())
+
+
+def leaves(tree):
+    """(path, tensor) for every leaf of a tree of tensors."""
+    out = []
+    tree_map_with_path(lambda p, x: out.append(('/'.join(map(str, p)), x)),
+                       tree)
+    return out
+
+
+def check_same(tag, got, want):
+    """Two trees of tensors equal leaf by leaf, dtype and bits."""
+    for (path, g), (_, w) in zip(leaves(got), leaves(want)):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              '%s: %s differs' % (tag, path))
+
+
+def check_sharded(tag, got, want):
+    """A sharded step's (states, outs, aggregates) against the
+    unsharded step's: state and per-pool outputs bit for bit,
+    `n_pools` exactly, the float aggregates to RTOL/ATOL."""
+    gs, go, gf = (unshard(t) for t in got)
+    ws, wo, wf = want
+    check_same(tag + ' state', gs, ws)
+    check_same(tag + ' per-pool', go, wo)
+    check(torch.equal(gf['n_pools'], wf['n_pools']),
+          '%s: n_pools differs' % tag)
+    for name in wf:
+        torch.testing.assert_close(gf[name], wf[name], rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: '%s %s: %s' % (tag, name, m))
+
+
+def clone(tree):
+    return tree_map(torch.clone, tree)
+
+
+def mesh_phases(dev, start, end):
+    """Phases 10-12. Returns their numbers for the summary lines."""
+    grid = [torch.device('cuda', 0)] * SHARDS
+    mesh = Mesh(grid, ('pools',))
+    mesh2 = Mesh(np.array(grid, dtype=object).reshape(2, 2),
+                 ('host', 'chip'))
+    axes2 = ('host', 'chip')
+
+    phase('10 multichip dryrun')
+    legs = dryrun_multichip(SHARDS, device=grid)
+    print('dryrun_multichip(%d): %s agree with the unsharded step; the %d '
+          'shards share one card, %s (%s)'
+          % (SHARDS, ', '.join(legs), SHARDS, grid[0],
+             torch.cuda.get_device_name(0)))
+
+    phase('11 sharded live (main path)')
+    rng = np.random.default_rng(1)
+    state, base = example_inputs(LIVE_POOLS, seed=1)
+    ref = state
+    sh1 = tel.shard_state(clone(state), mesh)
+    sh2 = tel.shard_state(clone(state), mesh2, axes2)
+    live = tel.make_live_step()
+    live1 = tel.make_live_step(mesh)
+    smap = tel.make_shardmap_step(mesh2, axes2)
+    control_step = ctl.make_control_step()
+    mctl = ctl.make_control_step(mesh)
+    c_ref = ctl.control_init(LIVE_POOLS, device=dev)
+    c_sh = ctl.shard_control_state(ctl.control_init(LIVE_POOLS, device=dev),
+                                   mesh)
+    live_ms, ctl_ms, launches = [], [], 0
+    for k in range(LIVE_TICKS):
+        inp = tick_inputs(base, rng, k)
+        inp1 = tel.shard_inputs(inp, mesh)
+        ref, r_out, r_fleet = want = live(ref, inp)
+        fir.fir_apply_cuda.launches = 0
+        start.record()
+        sh1, o1, f1 = got = live1(sh1, inp1)
+        end.record()
+        n = fir.fir_apply_cuda.launches
+        check(n == SHARDS, 'sharded live tick %d: %d FIR launches' % (k, n))
+        launches += n
+        sh2, o2, f2 = got2 = smap(sh2, tel.shard_inputs(inp, mesh2, axes2))
+        torch.cuda.synchronize()
+        live_ms.append(start.elapsed_time(end))
+        check_sharded('sharded live tick %d' % k, got, want)
+        check_sharded('2x2 shard_map tick %d' % k, got2, want)
+
+        cinp = ctl.ControlInputs(
+            samples=inp.samples, sojourns=inp.sojourns,
+            filtered=r_out['filtered'], target_delay=inp.target_delay,
+            spares=inp.spares, maximum=inp.maximum, active=inp.active,
+            reset=inp.reset, now_ms=inp.now_ms)
+        c_want = control_step(c_ref, cinp)
+        cinp1 = tuple(ctl.ControlInputs(
+            samples=x.samples, sojourns=x.sojourns, filtered=o['filtered'],
+            target_delay=x.target_delay, spares=x.spares, maximum=x.maximum,
+            active=x.active, reset=x.reset, now_ms=x.now_ms)
+            for x, o in zip(inp1, o1))
+        start.record()
+        c_got = mctl(c_sh, cinp1)
+        end.record()
+        torch.cuda.synchronize()
+        ctl_ms.append(start.elapsed_time(end))
+        gs, gd, gf = (unshard(t) for t in c_got)
+        check_same('sharded control tick %d state' % k, gs, c_want[0])
+        check_same('sharded control tick %d decisions' % k, gd, c_want[1])
+        for name in ('n_pools', 'pressure', 'max_sojourn'):
+            check(torch.equal(gf[name], c_want[2][name]),
+                  'sharded control tick %d: %s' % (k, name))
+        torch.testing.assert_close(gf['mean_load'], c_want[2]['mean_load'],
+                                   rtol=RTOL, atol=0)
+        c_ref, c_sh = c_want[0], c_got[0]
+    live_ms_tick = sum(live_ms[1:]) / (len(live_ms) - 1)
+    ctl_ms_step = sum(ctl_ms[1:]) / (len(ctl_ms) - 1)
+    print('sharded live: %d ticks at %d pools over %d shards (and a 2x2 '
+          'shard_map) equal the unsharded kernel step bit for bit; fir '
+          'launches %d (%d per tick)' % (LIVE_TICKS, LIVE_POOLS, SHARDS,
+                                         launches, launches // LIVE_TICKS))
+    print('sharded live: first tick %.4f ms; ms/tick %.4f (mean of ticks '
+          '1-%d, CUDA events); pools/s %.6g'
+          % (live_ms[0], live_ms_tick, LIVE_TICKS - 1,
+             LIVE_POOLS / (live_ms_tick / 1e3)))
+    print('sharded control: %d steps bit-identical to the unsharded step; '
+          'first step %.4f ms; ms/step %.5f (CUDA events)'
+          % (LIVE_TICKS, ctl_ms[0], ctl_ms_step))
+    del ref, sh1, sh2, state, base, c_ref, c_sh
+
+    cols = health_example_columns(HEALTH_BACKENDS)
+    h_inp = hl.health_inputs(HEALTH_BACKENDS, device=dev, **cols)
+    health_step = hl.make_health_step()
+    mhealth = hl.make_health_step(mesh)
+    h_ref = hl.health_init(HEALTH_BACKENDS, device=dev)
+    h_sh = hl.shard_health_state(hl.health_init(HEALTH_BACKENDS, device=dev),
+                                 mesh)
+    h_ms = []
+    for k in range(HEALTH_TICKS):
+        tick_inp = h_inp._replace(now_ms=torch.tensor(
+            1000.0 * (k + 1), dtype=torch.float32, device=dev))
+        want = health_step(h_ref, tick_inp)
+        sharded_inp = hl.shard_health_inputs(tick_inp, mesh)
+        start.record()
+        got = mhealth(h_sh, sharded_inp)
+        end.record()
+        torch.cuda.synchronize()
+        h_ms.append(start.elapsed_time(end))
+        for part, g, w in zip(('state', 'verdicts', 'fleet'), got, want):
+            check_same('sharded health tick %d %s' % (k, part), unshard(g), w)
+        h_ref, h_sh = want[0], got[0]
+    n_gray = int(want[2]['n_gray'])
+    check(n_gray > 0, 'sharded health: no backend judged gray')
+    h_ms_step = sum(h_ms[1:]) / (len(h_ms) - 1)
+    print('sharded health: %d ticks at %d backends bit-identical to the '
+          'unsharded step (n_gray %d); first step %.4f ms; ms/step %.5f '
+          '(CUDA events)' % (HEALTH_TICKS, HEALTH_BACKENDS, n_gray, h_ms[0],
+                             h_ms_step))
+
+    phase('12 mesh sampler (main path)')
+    work = SamplerWorkload(SAMPLER_POOLS, SAMPLER_BACKENDS)
+    meshed = FleetSampler(work.options(mesh=mesh))
+    plain = FleetSampler(work.options())
+    s_ms, s_launches, drops = [], 0, 0
+    for k in range(SAMPLER_TICKS):
+        work.advance()
+        fir.fir_apply_cuda.launches = 0
+        t0 = time.perf_counter()
+        got = meshed.sample_once()
+        s_ms.append((time.perf_counter() - t0) * 1e3)
+        n = fir.fir_apply_cuda.launches
+        check(n == SHARDS, 'mesh sampler tick %d: %d FIR launches' % (k, n))
+        s_launches += n
+        want = plain.sample_once()
+        drops += check_mesh_records('mesh sampler tick %d' % k, got, want)
+    snap = meshed.snapshot()['mesh']
+    check(snap == {'axes': ['pools'], 'shape': {'pools': SHARDS},
+                   'n_devices': SHARDS}, 'mesh sampler snapshot %r' % snap)
+    check(drops > 0, 'mesh sampler: no CoDel drop')
+    meshed.stop()
+    plain.stop()
+    s_ms_tick = sum(s_ms[1:]) / (len(s_ms) - 1)
+    print('mesh sampler: %d ticks at %d pools over %d shards equal the '
+          'plain sampler on the card; %d drops; gray %s; fir launches %d'
+          % (SAMPLER_TICKS, SAMPLER_POOLS, SHARDS, drops,
+             got['health']['gray'], s_launches))
+    print('mesh sampler: first tick %.3f ms; wall ms/tick %.4f (mean of '
+          'ticks 1-%d, host clock, ends in a device sync); pools/s %.6g'
+          % (s_ms[0], s_ms_tick, SAMPLER_TICKS - 1,
+             SAMPLER_POOLS / (s_ms_tick / 1e3)))
+    return {
+        'shards': SHARDS,
+        'sharded_live_ms_per_tick': live_ms_tick,
+        'sharded_live_pools_per_s': LIVE_POOLS / (live_ms_tick / 1e3),
+        'sharded_control_ms_per_step': ctl_ms_step,
+        'sharded_health_ms_per_step': h_ms_step,
+        'mesh_sampler_wall_ms_per_tick': s_ms_tick,
+        'mesh_sampler_pools_per_s': SAMPLER_POOLS / (s_ms_tick / 1e3),
+        'sharded_live_launches': launches,
+        'mesh_sampler_launches': s_launches,
+    }
+
+
+def check_mesh_records(tag, got, want):
+    """The mesh sampler's tick record against the plain one's on the
+    same card: every input, per-pool output, decision and health
+    verdict exactly; the float fleet aggregates to RTOL/ATOL (their
+    sums run in another order). Returns the tick's drops."""
+    gp, wp = got['pools'], want['pools']
+    check(gp.tp_rows == wp.tp_rows, '%s: rows differ' % tag)
+    for name, col in wp.tp_cols.items():
+        check(np.array_equal(gp.tp_cols[name], col),
+              '%s: input %s differs' % (tag, name))
+    for name, col in wp.tp_out.items():
+        check(np.array_equal(gp.tp_out[name], col),
+              '%s: %s differs' % (tag, name))
+    for name, v in want['fleet'].items():
+        check(abs(got['fleet'][name] - v) <= ATOL + RTOL * abs(v),
+              '%s: fleet %s %r vs %r' % (tag, name, got['fleet'][name], v))
+    check(got['fleet']['n_pools'] == want['fleet']['n_pools'],
+          '%s: n_pools' % tag)
+    gc, wc = got['control'], want['control']
+    for name in ('applied', 'rejected', 'skipped', 'epoch', 'step_ms'):
+        check(gc[name] == wc[name], '%s: control %s' % (tag, name))
+    for name, v in wc['decisions'].items():
+        check(np.array_equal(gc['decisions'][name], v),
+              '%s: decision %s differs' % (tag, name))
+    for name, v in wc['fleet'].items():
+        check(abs(gc['fleet'][name] - v) <= RTOL * abs(v),
+              '%s: control %s' % (tag, name))
+    check(got['health'] == want['health'], '%s: health differs' % tag)
+    return int(wp.tp_out['drop'].sum())
 
 
 def main():
@@ -492,14 +737,21 @@ def main():
         'sampler_pools': SAMPLER_POOLS,
         'sampler_pools_per_s': SAMPLER_POOLS / (sampler_ms / 1e3)}))
 
+    meshed = mesh_phases(dev, start, end)
+    print('mesh ' + json.dumps(meshed))
+
     main_t = times[LIVE_POOLS]
     record = {
         'name': 'fir', 'route': 'cuda',
         'source': 'cueball_tpu_torch/csrc/fir.cu',
         'replaces': 'cueball_tpu/ops/fir.py:84',
-        'launches': launches + sampler_launches,
-        'launches_by_path': {'live_step': launches,
-                             'sampler': sampler_launches},
+        'launches': (launches + sampler_launches
+                     + meshed['sharded_live_launches']
+                     + meshed['mesh_sampler_launches']),
+        'launches_by_path': {
+            'live_step': launches, 'sampler': sampler_launches,
+            'sharded_live': meshed['sharded_live_launches'],
+            'mesh_sampler': meshed['mesh_sampler_launches']},
         'max_abs_err': max(e[0] for e in errs),
         'max_rel_err': max(e[1] for e in errs),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

@@ -1,13 +1,13 @@
 """cueball_tpu_torch: the fleet runtime in PyTorch, on CUDA.
 
 The counterpart of the JAX package ``cueball_tpu``'s batched control
-laws (``ops``) and its live fleet runtime on one device
-(``parallel``: the telemetry, control and health steps and the
-``FleetSampler`` that drives them), written in PyTorch, with the FIR
-matvec as a hand-written CUDA kernel for Hopper (``csrc/fir.cu``). It
-imports nothing of ``cueball_tpu``: the host state the sampler reaches
-(clock, backend registry, pool monitor) has its own copy here
-(``host``, ``monitor``, ``events``).
+laws (``ops``) and its live fleet runtime (``parallel``: the telemetry,
+control and health steps and the ``FleetSampler`` that drives them, on
+one device or split over a ``Mesh`` of devices in one process),
+written in PyTorch, with the FIR matvec as a hand-written CUDA kernel
+for Hopper (``csrc/fir.cu``). It imports nothing of ``cueball_tpu``:
+the host state the sampler reaches (clock, backend registry, pool
+monitor) has its own copy here (``host``, ``monitor``, ``events``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card the default raises. Importing the

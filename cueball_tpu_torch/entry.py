@@ -4,6 +4,8 @@
 - :func:`example_inputs` / :func:`tick_inputs` — seeded numpy draws in
   the same order as ``__graft_entry__`` does, so both packages
   can be fed identical inputs.
+- :func:`dryrun_multichip` — every mesh form of the telemetry step
+  held against the unsharded step over a :class:`Mesh` of n shards.
 - :func:`health_example_columns` — health-step inputs like
   ``bench.py``'s health sweep.
 - :class:`SyntheticPool` and :func:`frozen_host` — a fleet of pools and
@@ -24,7 +26,12 @@ from . import host
 from ._device import resolve_device
 from .monitor import PoolMonitor
 from .parallel.health import BUCKET_SCALE, LAT_BINS
-from .parallel.telemetry import fleet_init, fleet_inputs, fleet_step
+from .parallel.mesh import Mesh, unshard
+from .parallel.telemetry import (FleetInputs, _scan_shardings, fleet_init,
+                                 fleet_inputs, fleet_scan, fleet_step,
+                                 make_live_step, make_sharded_scan,
+                                 make_sharded_step, make_shardmap_step,
+                                 shard_inputs, shard_state, shard_window)
 
 
 def example_inputs(n_pools: int, taps: int = 128, seed: int = 0,
@@ -69,6 +76,122 @@ def entry(device=None):
     """(fn, example_args) for a single-device run of the telemetry step
     at 1024 pools."""
     return fleet_step, example_inputs(1024, device=device)
+
+
+def _state_leaves(state) -> list:
+    return [state.windows, *state.codel, state.now_ms]
+
+
+def dryrun_multichip(n_devices: int, device) -> list:
+    """Hold every mesh form of the telemetry step against the unsharded
+    ``fleet_step`` on identical seeded inputs, over a :class:`Mesh` of
+    ``n_devices`` shards; the port of ``__graft_entry__``'s dryrun.
+
+    ``device`` is the grid: a sequence of ``n_devices`` devices, or one
+    device that every shard shares (``'cpu'``, or ``'cuda:0'`` for n
+    shards on one card). The legs, each for 6 ticks at
+    ``max(8, n) * 4`` pools with 5% reset rows: ``make_sharded_step``
+    and ``make_shardmap_step`` on the 1-D ('pools',) mesh for seeds 0
+    and 1; both again on a 2-D ('host', 'chip') mesh when ``n_devices``
+    is even and at least 4; the live step (per-shard ping-pong) on the
+    1-D and 2-D meshes; and ``make_sharded_scan`` on both. Every
+    per-pool output, aggregate and state leaf is held to the unsharded
+    run at rtol 1e-5 / atol 1e-5 (AssertionError otherwise). Returns
+    the names of the legs run."""
+    if isinstance(device, (str, torch.device)):
+        devs = [device] * n_devices
+    else:
+        devs = list(device)
+    if len(devs) != n_devices:
+        raise ValueError('need %d devices, got %d' % (n_devices, len(devs)))
+    mesh = Mesh(devs, ('pools',))
+    ref_dev = mesh.first_device
+    n_pools = max(8, n_devices) * 4   # tiny, divisible by the mesh
+    ticks = 6
+    legs = []
+
+    def check(tag, got, want, seed, k):
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5,
+            err_msg='%s diverged from unsharded (seed %d, step %d)' % (
+                tag, seed, k))
+
+    def compare_on_mesh(kind, step, cmp_mesh, axes, seed):
+        """K sharded steps against the unsharded laws: one comparison
+        loop for every mesh shape and step form."""
+        rng = np.random.default_rng(seed)
+        state_ref, base = example_inputs(n_pools, seed=seed, device=ref_dev)
+        state_sh = shard_state(state_ref, cmp_mesh, axes)
+        for k in range(ticks):
+            inp = tick_inputs(base, rng, k)
+            state_ref, out_ref, fleet_ref = fleet_step(state_ref, inp)
+            state_sh, out_sh, fleet_sh = step(
+                state_sh, shard_inputs(inp, cmp_mesh, axes))
+            out, fleet = unshard(out_sh), unshard(fleet_sh)
+            for name in out_ref:
+                check('%s per-pool %r' % (kind, name), out[name],
+                      out_ref[name], seed, k)
+            for name in fleet_ref:
+                check('%s aggregate %r' % (kind, name), fleet[name],
+                      fleet_ref[name], seed, k)
+            for got, want in zip(_state_leaves(unshard(state_sh)),
+                                 _state_leaves(state_ref)):
+                check('%s FleetState' % kind, got, want, seed, k)
+        legs.append(kind)
+
+    mesh2 = axes2 = None
+    if n_devices >= 4 and n_devices % 2 == 0:
+        mesh2 = Mesh(np.array(devs, dtype=object).reshape(
+            2, n_devices // 2), ('host', 'chip'))
+        axes2 = ('host', 'chip')
+
+    for kind, make in (('gspmd', make_sharded_step),
+                       ('shard_map', make_shardmap_step)):
+        for seed in (0, 1):
+            compare_on_mesh(kind, make(mesh), mesh, ('pools',), seed)
+    if mesh2 is not None:
+        compare_on_mesh('gspmd-2d', make_sharded_step(mesh2, axes2),
+                        mesh2, axes2, 7)
+        compare_on_mesh('shard_map-2d', make_shardmap_step(mesh2, axes2),
+                        mesh2, axes2, 7)
+
+    # The live runtime's tick form: each shard ping-pongs its own ring.
+    # Every carried state leaf is compared, so a shared or aliased
+    # spare fails.
+    compare_on_mesh('live', make_live_step(mesh, ('pools',)), mesh,
+                    ('pools',), 11)
+    if mesh2 is not None:
+        compare_on_mesh('live-2d', make_live_step(mesh2, axes2), mesh2,
+                        axes2, 13)
+
+    # Sharded whole-window replay: each shard carries its rows through
+    # the whole window.
+    rng = np.random.default_rng(3)
+    state0, base = example_inputs(n_pools, seed=3, device=ref_dev)
+    window = FleetInputs(*(torch.stack(col) for col in zip(
+        *(tick_inputs(base, rng, k) for k in range(ticks)))))
+    fin_ref, outs_ref, fleets_ref = fleet_scan(state0, window)
+    scan_meshes = [('scan', mesh, ('pools',))]
+    if mesh2 is not None:
+        scan_meshes.append(('scan-2d', mesh2, axes2))
+    for tag, scan_mesh, axes in scan_meshes:
+        fin_sh, outs_sh, fleets_sh = make_sharded_scan(scan_mesh, axes)(
+            shard_state(state0, scan_mesh, axes),
+            shard_window(window, scan_mesh, axes))
+        _, _, (_, out_specs, fleet_specs) = _scan_shardings(axes)
+        outs = unshard(outs_sh, out_specs)
+        fleets = unshard(fleets_sh, fleet_specs)
+        for name in outs_ref:
+            check('%s per-pool %r' % (tag, name), outs[name],
+                  outs_ref[name], 3, -1)
+        for name in fleets_ref:
+            check('%s aggregate %r' % (tag, name), fleets[name],
+                  fleets_ref[name], 3, -1)
+        for got, want in zip(_state_leaves(unshard(fin_sh)),
+                             _state_leaves(fin_ref)):
+            check('%s FleetState' % tag, got, want, 3, -1)
+        legs.append(tag)
+    return legs
 
 
 def health_example_columns(n: int) -> dict:

@@ -22,13 +22,19 @@ for bit with the JAX package's. ``mean_load`` is a float sum and feeds
 gauges only. Integer columns stay int32: ``torch.sum`` of int32 returns
 int64 unless told otherwise, so every sum names its dtype.
 
+Sharding over a :class:`~.mesh.Mesh` is derived from *regex partition
+rules* (:func:`match_partition_rules`): one rule table names which
+leaves replicate and which split over the pools axis, and every mesh
+form and placement derives from it.
+
 Actuation is on the host: :func:`apply_decisions` offers each pool its
-row's decision through ``apply_control_decision``. The multi-device
-forms and the regex partition rules wait for the multi-device slice.
+row's decision through ``apply_control_decision``.
 """
 
 from __future__ import annotations
 
+import functools
+import re
 import typing
 
 import numpy as np
@@ -36,10 +42,14 @@ import torch
 
 from .._device import resolve_device
 from ..codel import CODEL_TARGET_MAX, CODEL_TARGET_MIN
+from .mesh import Mesh, Reducer, shard_tree, tree_map_with_path
 
 __all__ = ['ControlInputs', 'ControlState', 'apply_decisions',
-           'control_init', 'control_inputs', 'control_step',
-           'make_control_step', 'reduce_control']
+           'control_init', 'control_inputs', 'control_specs',
+           'control_step', 'make_control_step',
+           'make_shardmap_control_step', 'match_partition_rules',
+           'partition_rules', 'reduce_control', 'shard_control_inputs',
+           'shard_control_state']
 
 #: AIMD law constants. Tighten is multiplicative (x0.875 per over-target
 #: step), relax is additive (+1 ms per quiet step) and capped at the
@@ -54,10 +64,6 @@ PRESSURE_IDLE = 0.05
 
 _I32 = torch.int32
 _F32 = torch.float32
-
-MESH_NOT_PORTED = ('the multi-device forms of the port (mesh=) come with '
-                   'the multi-device slice (ROADMAP A6)')
-
 
 class ControlState(typing.NamedTuple):
     """Carried control-plane state."""
@@ -202,13 +208,102 @@ def control_step(state: ControlState, inp: ControlInputs):
     return _decide(state, inp, base, cur, over, sums)
 
 
-def make_control_step(mesh=None):
-    """The live control step on one device. The JAX form donates its
-    state; this one allocates the new state and leaves the old one
-    intact. ``mesh=`` is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    return control_step
+# -- regex partition rules --------------------------------------------------
+
+def _path_str(path) -> str:
+    """'/'-joined tree path: NamedTuple fields and dict keys by name,
+    plain tuple items by index."""
+    return '/'.join(str(k) for k in path)
+
+
+def match_partition_rules(rules, tree):
+    """Map a rule table of ``(regex, placement)`` pairs over a tree of
+    tensors, yielding the placement tree. The first matching rule wins
+    (re.search over the '/'-joined leaf path); rank-0 leaves are never
+    split; an unmatched leaf raises, so a new state or decision column
+    must be placed deliberately."""
+    def pick(path, leaf):
+        if leaf.dim() == 0:
+            return ()
+        name = _path_str(path)
+        for rx, spec in rules:
+            if re.search(rx, name):
+                return spec
+        raise ValueError('no partition rule matches %r' % name)
+    return tree_map_with_path(pick, tree)
+
+
+def partition_rules(axes: tuple = ('pools',)):
+    """The ONE enumeration of how control-plane data shards: scalars
+    (clock, epoch, fleet aggregates) replicate; every per-pool column
+    splits over the mesh axes."""
+    return (
+        (r'(^|/)(now_ms|epoch|n_pools|pressure|mean_load|max_sojourn)$',
+         ()),
+        (r'.*', (tuple(axes),)),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def control_specs(axes: tuple = ('pools',)):
+    """(state, inputs, outputs) placement trees, derived by running the
+    rule table over templates of the step made on the CPU."""
+    rules = partition_rules(axes)
+    state_t = control_init(8, device='cpu')
+    inp_t = control_inputs(8, device='cpu')
+    out_t = control_step(state_t, inp_t)
+    return (match_partition_rules(rules, state_t),
+            match_partition_rules(rules, inp_t),
+            match_partition_rules(rules, out_t))
+
+
+def _mesh_control_step(mesh: Mesh, axes: tuple, hierarchical: bool):
+    """The control step over the shards of ``mesh``: ``_plan_local`` on
+    each shard, the decision-feeding counts all-reduced (int32 sums and
+    a max, so the decisions match the plain step bit for bit whatever
+    the reduction tree), then ``_decide`` on each shard. Takes and
+    returns sharded trees."""
+    reducer = Reducer(mesh, axes, hierarchical)
+
+    def step(states, inps):
+        if len(states) != mesh.size or len(inps) != mesh.size:
+            raise ValueError('a %d-shard step got %d states and %d inputs'
+                             % (mesh.size, len(states), len(inps)))
+        plans = [_plan_local(s, x) for s, x in zip(states, inps)]
+        sums = reducer.terms(
+            [_control_sums(x, over) for x, (_, _, over) in zip(inps, plans)],
+            max_terms=('max_sojourn',))
+        results = [_decide(s, x, *plan, sm) for s, x, plan, sm in
+                   zip(states, inps, plans, sums)]
+        return tuple(zip(*results))
+    return step
+
+
+def make_control_step(mesh: Mesh | None = None, axes: tuple = ('pools',)):
+    """The live control step. Without a mesh, the step on one device
+    (the JAX form donates its state; this one allocates the new state
+    and leaves the old one intact). With a mesh, every per-pool column
+    split per the partition rules, the counts reduced in one pass over
+    the shards."""
+    if mesh is None:
+        return control_step
+    return _mesh_control_step(mesh, tuple(axes), hierarchical=False)
+
+
+def make_shardmap_control_step(mesh: Mesh, axes: tuple = ('pools',)):
+    """The SPMD form: the counts reduced innermost mesh axis first, then
+    the outer ones, as the JAX form's psum over ``reversed(axes)``."""
+    return _mesh_control_step(mesh, tuple(axes), hierarchical=True)
+
+
+def shard_control_state(state: ControlState, mesh: Mesh,
+                        axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(state, control_specs(tuple(axes))[0], mesh)
+
+
+def shard_control_inputs(inp: ControlInputs, mesh: Mesh,
+                         axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(inp, control_specs(tuple(axes))[1], mesh)
 
 
 # -- batched host actuation -------------------------------------------------

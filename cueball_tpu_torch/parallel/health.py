@@ -37,7 +37,9 @@ per-backend columns from the host's backend sinks, and
 :class:`HealthMonitor` drives the step and publishes
 ``cueball_backend_health{backend=...}`` / ``cueball_slo_burn_rate``
 gauges and its snapshot; :func:`reduce_health` merges per-shard
-verdicts. The multi-device forms wait for the multi-device slice.
+verdicts. Over a :class:`~.mesh.Mesh` the backends axis splits per
+the regex partition rules (:func:`health_partition_rules`), and the
+histogram sums become all-reduces.
 """
 
 from __future__ import annotations
@@ -53,14 +55,17 @@ import torch
 
 from .. import host as default_host
 from .._device import resolve_device, to_host_values
-from .control import MESH_NOT_PORTED
+from .control import match_partition_rules
+from .mesh import Mesh, Reducer, shard_tree, unshard
 from .telemetry import fold_backend_slots
 
 __all__ = ['BackendTable', 'DEFAULT_OBJECTIVES', 'HealthInputs',
            'HealthMonitor', 'HealthState', 'SLOObjectives',
            'active_monitors', 'health_init', 'health_inputs',
-           'health_snapshot', 'health_step', 'latency_bucket',
-           'make_health_step', 'reduce_health']
+           'health_partition_rules', 'health_snapshot', 'health_specs',
+           'health_step', 'latency_bucket', 'make_health_step',
+           'make_shardmap_health_step', 'reduce_health',
+           'shard_health_inputs', 'shard_health_state']
 
 #: Latency sketch geometry: bucket k spans latencies whose
 #: log2(1 + ms) falls in [k/4, (k+1)/4).
@@ -346,14 +351,99 @@ def _make_law(objectives: SLOObjectives):
 health_step = _make_law(DEFAULT_OBJECTIVES)
 
 
+# -- partition rules and the mesh forms --------------------------------------
+
+def health_partition_rules(axes: tuple = ('pools',)):
+    """The ONE enumeration of how health data shards: the rank-2
+    latency sketches split rows over the mesh axes (buckets whole),
+    every per-backend column splits over the axes, and scalars (clock,
+    epoch, baselines, burn rates) replicate."""
+    axes = tuple(axes)
+    return (
+        (r'(^|/)(lat_hist|lat_buckets|claim_buckets)$', (axes, None)),
+        (r'.*', (axes,)),
+    )
+
+
 @functools.lru_cache(maxsize=None)
-def make_health_step(mesh=None,
+def health_specs(axes: tuple = ('pools',)):
+    """(state, inputs, outputs) placement trees, derived by running the
+    rule table over templates of the step made on the CPU."""
+    rules = health_partition_rules(axes)
+    state_t = health_init(8, device='cpu')
+    inp_t = health_inputs(8, device='cpu')
+    out_t = health_step(state_t, inp_t)
+    return (match_partition_rules(rules, state_t),
+            match_partition_rules(rules, inp_t),
+            match_partition_rules(rules, out_t))
+
+
+def _mesh_law(mesh: Mesh, axes: tuple, objectives: SLOObjectives,
+              hierarchical: bool):
+    """The health step over the shards of ``mesh``. Two reduce phases:
+    the score histogram (and the other sums) reduce onto the first
+    device, where the median is read and copied back to every shard;
+    then the deviation histogram reduces for the MAD. ``_judge`` runs
+    on each shard and ``n_gray`` reduces last. All int32 sums, so the
+    verdicts and counts match the plain step bit for bit. Takes and
+    returns sharded trees."""
+    reducer = Reducer(mesh, axes, hierarchical)
+
+    def step(states, inps):
+        if len(states) != mesh.size or len(inps) != mesh.size:
+            raise ValueError('a %d-shard step got %d states and %d inputs'
+                             % (mesh.size, len(states), len(inps)))
+        obs = [_observe_local(s, x) for s, x in zip(states, inps)]
+        sums = reducer.totals([_health_sums(x, score, considered)
+                               for x, (_, _, score, considered)
+                               in zip(inps, obs)])
+        med = _hist_median(sums['score_hist'], sums['n'])
+        meds = reducer.broadcast(med)
+        dev = reducer.total([_deviation_hist(score, considered, m)
+                             for (_, _, score, considered), m
+                             in zip(obs, meds)])
+        mads = reducer.broadcast(_hist_median(dev, sums['n']))
+        results = [_judge(s, x, *o, sm, m, mad, objectives)
+                   for s, x, o, sm, m, mad in
+                   zip(states, inps, obs, reducer.broadcast_terms(sums),
+                       meds, mads)]
+        n_gray = reducer.all_reduce(
+            [torch.sum(v['gray'], dtype=_I32) for _, v, _ in results])
+        for (_, _, fleet), n in zip(results, n_gray):
+            fleet['n_gray'] = n
+        return tuple(zip(*results))
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_health_step(mesh: Mesh | None = None, axes: tuple = ('pools',),
                      objectives: SLOObjectives = DEFAULT_OBJECTIVES):
-    """The live health step on one device, memoized per objectives.
-    ``mesh=`` is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    return _make_law(objectives)
+    """The live health step, memoized per (mesh, axes, objectives).
+    Without a mesh, the step on one device; with one, every
+    per-backend column split per the partition rules, the histograms
+    reduced in one pass over the shards."""
+    if mesh is None:
+        return _make_law(objectives)
+    return _mesh_law(mesh, tuple(axes), objectives, hierarchical=False)
+
+
+def make_shardmap_health_step(
+        mesh: Mesh, axes: tuple = ('pools',),
+        objectives: SLOObjectives = DEFAULT_OBJECTIVES):
+    """The SPMD form: each reduce phase runs innermost mesh axis first,
+    then the outer ones, as the JAX form's psum over
+    ``reversed(axes)``."""
+    return _mesh_law(mesh, tuple(axes), objectives, hierarchical=True)
+
+
+def shard_health_state(state: HealthState, mesh: Mesh,
+                       axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(state, health_specs(tuple(axes))[0], mesh)
+
+
+def shard_health_inputs(inp: HealthInputs, mesh: Mesh,
+                        axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(inp, health_specs(tuple(axes))[1], mesh)
 
 
 # -- host attribution table -------------------------------------------------
@@ -481,14 +571,18 @@ class HealthMonitor:
     (gauge label), ``history`` (verdict ring length), ``interval``
     (advisory tick period, ms; the owner calls :meth:`tick`),
     ``table`` (a BackendTable), ``host`` (the host seam, default
-    ``cueball_tpu_torch.host``) and ``device`` (default CUDA, which
-    must exist). ``mesh`` is not ported yet and raises."""
+    ``cueball_tpu_torch.host``), ``device`` (default CUDA, which must
+    exist), and ``mesh`` + ``meshAxes`` (split the step over a
+    :class:`~.mesh.Mesh`; the shards then live on the mesh's devices
+    and ``device`` is not read)."""
 
     def __init__(self, options: dict | None = None):
         options = dict(options or {})
-        if options.get('mesh') is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.hm_device = resolve_device(options.get('device'))
+        self.hm_mesh = options.get('mesh')
+        self.hm_mesh_axes = tuple(options.get('meshAxes', ('pools',)))
+        self.hm_device = (self.hm_mesh.first_device
+                          if self.hm_mesh is not None
+                          else resolve_device(options.get('device')))
         self.hm_host = options.get('host') or default_host
         self.hm_objectives: SLOObjectives = (
             options.get('objectives') or DEFAULT_OBJECTIVES)
@@ -526,11 +620,13 @@ class HealthMonitor:
 
     # -- the tick ------------------------------------------------------
 
-    @staticmethod
-    def _rows_for(n: int) -> int:
+    def _rows_for(self, n: int) -> int:
         rows = 8
         while rows < n:
             rows *= 2
+        if self.hm_mesh is not None:
+            mult = self.hm_mesh.size
+            rows = ((rows + mult - 1) // mult) * mult
         return rows
 
     @staticmethod
@@ -553,22 +649,34 @@ class HealthMonitor:
         host.drain_native()
         cols = self.hm_table.drain()
         rows = self._rows_for(len(cols['lat_sum']))
-        if self.hm_state is None:
-            self.hm_state = health_init(rows, device=self.hm_device)
-        elif rows != self.hm_rows:
-            self.hm_state = self._pad_state(self.hm_state, rows)
-        self.hm_rows = rows
+        mesh, axes = self.hm_mesh, self.hm_mesh_axes
+        if self.hm_state is None or rows != self.hm_rows:
+            if self.hm_state is None:
+                state = health_init(rows, device=self.hm_device)
+            elif mesh is None:
+                state = self._pad_state(self.hm_state, rows)
+            else:
+                state = self._pad_state(unshard(self.hm_state), rows)
+            if mesh is not None:
+                state = shard_health_state(state, mesh, axes)
+            self.hm_state, self.hm_rows = state, rows
 
         inp = health_inputs(
             rows, now_ms=np.float32(now_ms % (2.0 ** 20)),
             device=self.hm_device, **fold_backend_slots(cols, rows))
-        step = make_health_step(objectives=self.hm_objectives)
+        if mesh is not None:
+            inp = shard_health_inputs(inp, mesh, axes)
+        step = make_health_step(mesh, axes, self.hm_objectives)
         state = self.hm_state
         # As the JAX monitor (whose step donates the state): a failed
         # step restarts from a fresh state next tick.
         self.hm_state = None
         new_state, verdicts, fleet = step(state, inp)
         self.hm_state = new_state
+        if mesh is not None:
+            # One host copy per shard for the verdict columns; the
+            # fleet row is replicated, shard 0's is read.
+            verdicts, fleet = unshard(verdicts, device='cpu'), fleet[0]
         return self._publish(verdicts, fleet, now_ms)
 
     def _publish(self, verdicts, fleet, now_ms: float) -> dict:

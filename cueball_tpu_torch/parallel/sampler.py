@@ -1,5 +1,6 @@
-"""Live bridge: registered pools -> the batched telemetry step on one
-device, the counterpart of ``cueball_tpu.parallel.sampler``.
+"""Live bridge: registered pools -> the batched telemetry step, on one
+device or split over a :class:`~.mesh.Mesh` (``options['mesh']``), the
+counterpart of ``cueball_tpu.parallel.sampler``.
 
 Every tick the FleetSampler feeds, for every pool registered in its
 monitor, exactly the signals the pool's own control laws consume:
@@ -46,11 +47,12 @@ from .._device import resolve_device, to_host_values
 from ..events import EventEmitter
 from ..monitor import pool_monitor as default_monitor
 from ..ops.codel_batch import CodelState
-from .control import (MESH_NOT_PORTED, ControlInputs, ControlState,
-                      apply_decisions, control_init, make_control_step)
+from .control import (ControlInputs, apply_decisions, control_init,
+                      make_control_step, shard_control_state)
 from .health import HealthMonitor
+from .mesh import Mesh, Reducer, shard_rows, unshard
 from .telemetry import (FleetInputs, FleetState, fleet_init,
-                        make_live_step, rebase_state)
+                        make_live_step, rebase_state, shard_state)
 
 SAMPLER_INT = 200  # ms, the pools' own LP cadence
 
@@ -169,6 +171,16 @@ class _TickPools(Mapping):
         }
 
 
+def _control_inputs(inp: FleetInputs, out: dict) -> ControlInputs:
+    """The control step's inputs: the telemetry tick's own device
+    tensors and its ``filtered`` output, nothing shipped anew."""
+    return ControlInputs(
+        samples=inp.samples, sojourns=inp.sojourns,
+        filtered=out['filtered'], target_delay=inp.target_delay,
+        spares=inp.spares, maximum=inp.maximum,
+        active=inp.active, reset=inp.reset, now_ms=inp.now_ms)
+
+
 def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
     """``t`` with ``pad`` zero rows appended along its first axis."""
     return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
@@ -201,20 +213,34 @@ class FleetSampler:
     - host: the host seam (see ``cueball_tpu_torch.host``).
     - device: where the fleet tensors live (default CUDA, which must
       exist; ``'cpu'`` runs the plain FIR).
-    ``mesh`` is not ported yet and raises.
+    - mesh: a :class:`~.mesh.Mesh`. The fleet tensors then live split
+      by rows over the mesh's devices (``device`` is not read), the
+      tick runs the per-shard step (one FIR launch per shard) with the
+      aggregates all-reduced, and the control and health steps run
+      sharded too. Row capacity rounds up to a multiple of the mesh
+      size. The snapshot reports the mesh.
+    - meshAxes: the mesh axes the pools axis splits over (default
+      ('pools',); ('host', 'chip') for a 2-D mesh).
     """
 
     def __init__(self, options: dict | None = None):
         options = options or {}
-        if options.get('mesh') is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.fs_device = resolve_device(options.get('device'))
+        self.fs_mesh: Mesh | None = options.get('mesh')
+        self.fs_mesh_axes = tuple(options.get('meshAxes') or ('pools',))
+        self.fs_device = (self.fs_mesh.first_device
+                          if self.fs_mesh is not None
+                          else resolve_device(options.get('device')))
         self.fs_host = options.get('host') or default_host
         self.fs_monitor = options.get('monitor') or default_monitor
         self.fs_shard = options.get('shard')
         self.fs_interval = options.get('interval') or SAMPLER_INT
         self.fs_taps = options.get('taps') or 128
         self.fs_capacity = options.get('capacity') or 8
+        if self.fs_mesh is not None:
+            # Rows split evenly over the shards; doubling growth keeps
+            # any starting multiple.
+            n = self.fs_mesh.size
+            self.fs_capacity = -(-self.fs_capacity // n) * n
         self.fs_collector = options.get('collector')
         self.fs_record = bool(options.get('record'))
         self.fs_actuate = bool(options.get('actuate'))
@@ -291,13 +317,18 @@ class FleetSampler:
         self.fs_loop_lag = np.zeros((cap,), np.float64)
         self.fs_active = np.zeros((cap,), bool)
 
-    def _ensure_state(self) -> FleetState:
+    def _ensure_state(self):
+        """The carried FleetState: one tree, or with a mesh a tuple of
+        per-shard trees."""
         if self.fs_state is None:
-            self.fs_state = fleet_init(self.fs_capacity, taps=self.fs_taps,
-                                       device=self.fs_device)
+            st = fleet_init(self.fs_capacity, taps=self.fs_taps,
+                            device=self.fs_device)
+            if self.fs_mesh is not None:
+                st = shard_state(st, self.fs_mesh, self.fs_mesh_axes)
+            self.fs_state = st
             # Each sampler owns its live step: it keeps the fleet's
-            # spare window buffer.
-            self.fs_step = make_live_step()
+            # spare window buffers.
+            self.fs_step = make_live_step(self.fs_mesh, self.fs_mesh_axes)
         return self.fs_state
 
     def _grow(self, need: int) -> None:
@@ -305,16 +336,24 @@ class FleetSampler:
         cap = old
         while cap < need:
             cap *= 2
+        mesh, axes = self.fs_mesh, self.fs_mesh_axes
         st = self._ensure_state()
+        if mesh is not None:
+            st = unshard(st)      # rows move between shards as P grows
         pad = cap - old
-        self.fs_state = FleetState(
+        st = FleetState(
             windows=_pad_rows(st.windows, pad),
             codel=CodelState(*(_pad_rows(c, pad) for c in st.codel)),
             now_ms=st.now_ms)
+        self.fs_state = (st if mesh is None
+                         else shard_state(st, mesh, axes))
         if self.fs_ctrl_state is not None:
             cs = self.fs_ctrl_state
-            self.fs_ctrl_state = cs._replace(
-                targets=_pad_rows(cs.targets, pad))
+            if mesh is not None:
+                cs = unshard(cs)
+            cs = cs._replace(targets=_pad_rows(cs.targets, pad))
+            self.fs_ctrl_state = (cs if mesh is None
+                                  else shard_control_state(cs, mesh, axes))
         self.fs_input_cache.clear()   # shapes changed
         for name, arr in self.fs_cols.items():
             grown = np.full((cap,), _COL_DEFAULTS[name], np.float32)
@@ -471,26 +510,51 @@ class FleetSampler:
         self._patch_dirty_rows()
         return self.fs_tick_visits
 
-    def _place_inputs(self, arrays: dict, now: float) -> FleetInputs:
+    def _place_inputs(self, arrays: dict, now: float):
         """Host tick columns -> device FleetInputs, copying to the
         device only the fields whose values changed since the previous
-        tick; an unchanged field reuses its cached device tensor. The
-        clock always ships, as a 0-dim float32 tensor. Callers pass
-        per-tick copies, never the live columns: the cache keeps the
-        host array it committed."""
+        tick; an unchanged field reuses its cached device tensor(s).
+        With a mesh, a changed column ships one slice per shard, and
+        the result is a tuple of per-shard FleetInputs. The clock
+        always ships, as a 0-dim float32 tensor. Callers pass per-tick
+        copies, never the live columns: the cache keeps the host array
+        it committed."""
         dev = self.fs_device
+        devs = (None if self.fs_mesh is None
+                else self.fs_mesh.shard_devices(self.fs_mesh_axes))
         placed = {}
         for name, host in arrays.items():
             cached = self.fs_input_cache.get(name)
             if cached is not None and np.array_equal(cached[0], host):
                 placed[name] = cached[1]
                 continue
-            t = torch.tensor(host, device=dev)
+            if devs is None:
+                t = torch.tensor(host, device=dev)
+            else:
+                t = tuple(torch.tensor(block, device=d) for block, d in
+                          zip(np.split(host, len(devs)), devs))
             self.fs_input_cache[name] = (host, t)
             placed[name] = t
-        return FleetInputs(
-            now_ms=torch.tensor(now, dtype=torch.float32, device=dev),
-            **placed)
+        clock = torch.tensor(now, dtype=torch.float32, device=dev)
+        if devs is None:
+            return FleetInputs(now_ms=clock, **placed)
+        return tuple(
+            FleetInputs(now_ms=clock.to(d),
+                        **{k: v[i] for k, v in placed.items()})
+            for i, d in enumerate(devs))
+
+    def _host_columns(self, cols: dict) -> dict:
+        """A step's column outputs as numpy, one device-to-host copy per
+        column (per shard, with a mesh)."""
+        if self.fs_mesh is not None:
+            cols = unshard(cols, device='cpu')
+        return {k: v.cpu().numpy() for k, v in cols.items()}
+
+    def _host_row(self, fleet) -> dict:
+        """A step's replicated aggregates as Python numbers, in one
+        device-to-host copy (shard 0's, with a mesh)."""
+        return to_host_values(fleet[0] if self.fs_mesh is not None
+                              else fleet)
 
     def sample_once(self) -> dict | None:
         """One synchronous tick: patch dirty rows, step, publish.
@@ -508,7 +572,10 @@ class FleetSampler:
         now = abs_now - self.fs_epoch
         if now > EPOCH_LIMIT:
             shift = now - EPOCH_MARGIN
-            self.fs_state = rebase_state(self._ensure_state(), shift)
+            st = self._ensure_state()
+            self.fs_state = (
+                rebase_state(st, shift) if self.fs_mesh is None
+                else tuple(rebase_state(s, shift) for s in st))
             self.fs_epoch += shift
             now -= shift
         cap = self.fs_capacity
@@ -552,12 +619,12 @@ class FleetSampler:
         self.fs_ticks += 1
 
         # One device-to-host copy for the aggregates, one per output.
-        fleet_np = to_host_values(fleet)
+        fleet_np = self._host_row(fleet)
         # Host-side column: worst loop-lag p99 across occupied rows.
         fleet_np['loop_lag_p99_us'] = (
             float(self.fs_loop_lag[self.fs_active].max())
             if bool(self.fs_active.any()) else 0.0)
-        out_np = {k: v.cpu().numpy() for k, v in out.items()}
+        out_np = self._host_columns(out)
         per_pool = _TickPools(dict(self.fs_rows), arrays, out_np)
         # Per-row tick counters drive the warm-up gates of the advisory
         # push and the control step: a row's filter starts zeroed on
@@ -598,15 +665,18 @@ class FleetSampler:
 
     # -- control plane ---------------------------------------------------
 
-    def _ensure_control(self) -> ControlState:
+    def _ensure_control(self):
         if self.fs_ctrl_state is None:
-            self.fs_ctrl_state = control_init(self.fs_capacity,
-                                              device=self.fs_device)
-            self.fs_ctrl_step = make_control_step()
+            cs = control_init(self.fs_capacity, device=self.fs_device)
+            if self.fs_mesh is not None:
+                cs = shard_control_state(cs, self.fs_mesh,
+                                         self.fs_mesh_axes)
+            self.fs_ctrl_state = cs
+            self.fs_ctrl_step = make_control_step(self.fs_mesh,
+                                                  self.fs_mesh_axes)
         return self.fs_ctrl_state
 
-    def _control_once(self, inp: FleetInputs, out: dict,
-                      abs_now: float) -> dict:
+    def _control_once(self, inp, out, abs_now: float) -> dict:
         """Run the control step on the telemetry tick's device tensors
         and offer the decision columns to the sampled pools. Every
         ControlInputs field is a FleetInputs tensor the tick already
@@ -615,11 +685,10 @@ class FleetSampler:
         host = self.fs_host
         t0 = host.current_millis()
         state = self._ensure_control()
-        cinp = ControlInputs(
-            samples=inp.samples, sojourns=inp.sojourns,
-            filtered=out['filtered'], target_delay=inp.target_delay,
-            spares=inp.spares, maximum=inp.maximum,
-            active=inp.active, reset=inp.reset, now_ms=inp.now_ms)
+        if self.fs_mesh is None:
+            cinp = _control_inputs(inp, out)
+        else:
+            cinp = tuple(map(_control_inputs, inp, out))
         try:
             new_state, decisions, fleet = self.fs_ctrl_step(state, cinp)
         except Exception:
@@ -628,8 +697,8 @@ class FleetSampler:
             self.fs_ctrl_state = None
             raise
         self.fs_ctrl_state = new_state
-        dec_np = {k: v.cpu().numpy() for k, v in decisions.items()}
-        fleet_np = to_host_values(fleet)
+        dec_np = self._host_columns(decisions)
+        fleet_np = self._host_row(fleet)
         # Warm-up gate: only rows whose FIR window is fully populated
         # are offered decisions.
         eligible = {row: pool
@@ -679,6 +748,9 @@ class FleetSampler:
                     'interval': self.fs_interval,
                     'host': self.fs_host,
                     'device': self.fs_device}
+            if self.fs_mesh is not None:
+                opts['mesh'] = self.fs_mesh
+                opts['meshAxes'] = self.fs_mesh_axes
             if self.fs_objectives is not None:
                 opts['objectives'] = self.fs_objectives
             # start() attaches the monitor's BackendTable to the host's
@@ -693,6 +765,11 @@ class FleetSampler:
     # -- snapshot --------------------------------------------------------
 
     def snapshot(self) -> dict:
+        mesh = None
+        if self.fs_mesh is not None:
+            mesh = {'axes': list(self.fs_mesh_axes),
+                    'shape': dict(self.fs_mesh.shape),
+                    'n_devices': self.fs_mesh.size}
         latest = self.fs_latest
         if latest is not None and not isinstance(latest['pools'], dict):
             # Materialize the lazy per-pool view for a JSON surface.
@@ -727,23 +804,27 @@ class FleetSampler:
             'actuate': self.fs_actuate,
             'control': control,
             'health': health,
-            'mesh': None,
+            'mesh': mesh,
             'row_ticks': dict(self.fs_row_ticks),
             'last_tick_visits': self.fs_tick_visits,
             'latest': latest,
         }
 
 
-def reduce_fleet(records, mesh=None) -> dict:
+def reduce_fleet(records, mesh: Mesh | None = None,
+                 mesh_axes=('host', 'chip')) -> dict:
     """Reduce per-shard fleet aggregate rows into one fleet-wide row.
 
     ``records`` is a list of shard samplers' ``record['fleet']`` dicts.
     ``n_pools`` sums; the mean and fraction fields combine weighted by
     each shard's pool count; ``max_sojourn`` and ``loop_lag_p99_us``
     take the worst shard. Shards with zero pools contribute nothing to
-    the weighted fields. ``mesh=`` is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    the weighted fields.
+
+    With a ``mesh``, the per-shard columns split over ``mesh_axes`` and
+    reduce over the mesh in float32 (the shard -> host -> mesh tree);
+    the columns pad to a multiple of the mesh size with zero-weight
+    rows."""
     names = list(_FLEET_GAUGES)
     records = [r for r in records if r]
     if not records:
@@ -751,15 +832,36 @@ def reduce_fleet(records, mesh=None) -> dict:
     cols = {name: np.asarray([float(r.get(name, 0.0)) for r in records],
                              np.float32)
             for name in names}
-    w = cols['n_pools']
-    tot = float(w.sum())
-    safe = tot if tot > 0.0 else 1.0
+    if mesh is None:
+        w = cols['n_pools']
+        tot = float(w.sum())
+        safe = tot if tot > 0.0 else 1.0
+        out = {}
+        for name in names:
+            if name == 'n_pools':
+                out[name] = tot
+            elif name in ('max_sojourn', 'loop_lag_p99_us'):
+                out[name] = float(cols[name].max())
+            else:
+                out[name] = float((cols[name] * w).sum() / safe)
+        return out
+
+    pad = (-len(records)) % mesh.size
+    dev = {name: shard_rows(torch.from_numpy(np.pad(col, (0, pad))),
+                            mesh, mesh_axes)
+           for name, col in cols.items()}
+    reducer = Reducer(mesh, mesh_axes)
+    w = dev['n_pools']
+    tot = reducer.total([x.sum() for x in w])
+    safe = torch.where(tot > 0.0, tot, 1.0)
     out = {}
     for name in names:
         if name == 'n_pools':
-            out[name] = tot
+            out[name] = float(tot)
         elif name in ('max_sojourn', 'loop_lag_p99_us'):
-            out[name] = float(cols[name].max())
+            out[name] = float(reducer.total([x.amax() for x in dev[name]],
+                                            'max'))
         else:
-            out[name] = float((cols[name] * w).sum() / safe)
+            out[name] = float(reducer.total(
+                [(x * wx).sum() for x, wx in zip(dev[name], w)]) / safe)
     return out

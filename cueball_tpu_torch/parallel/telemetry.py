@@ -18,9 +18,11 @@ and produces, per pool:
 - the reproduced backoff delay (reference lib/connection-fsm.js:372-380)
 
 plus fleet-wide aggregates (mean load, overload fraction, retry
-pressure). Rows are a fixed-capacity [P] axis; `active` masks
-unoccupied rows out of the aggregates and `reset` clears carried state
-when a row is reassigned to a new pool.
+pressure), which become all-reduces when the pools axis is split over
+a :class:`~.mesh.Mesh` (the mesh forms at the end of this module).
+Rows are a fixed-capacity [P] axis; `active` masks unoccupied rows out
+of the aggregates and `reset` clears carried state when a row is
+reassigned to a new pool.
 
 Everything is float32, the clock included: ``now_ms`` is a 0-dim
 float32 tensor, because CoDel compares and adds float32 timestamps and
@@ -38,6 +40,7 @@ from .._device import resolve_device
 from ..ops.backoff import backoff_at
 from ..ops.codel_batch import CodelState, codel_init, _step as codel_step
 from ..ops.fir import fir_apply, fir_apply_cuda, fir_apply_plain, gen_taps
+from .mesh import Mesh, Reducer, shard_tree
 
 
 class FleetState(typing.NamedTuple):
@@ -264,7 +267,8 @@ class LiveStep:
     def __init__(self):
         self._spare: torch.Tensor | None = None
 
-    def __call__(self, state: FleetState, inp: FleetInputs):
+    def local(self, state: FleetState, inp: FleetInputs):
+        """``_local_step`` writing the new ring into the spare."""
         win = state.windows
         spare = self._spare
         if spare is None or spare.shape != win.shape or \
@@ -273,14 +277,152 @@ class LiveStep:
             spare = torch.empty_like(win)
         new_state, out = _local_step(state, inp, out_windows=spare)
         self._spare = win
+        return new_state, out
+
+    def __call__(self, state: FleetState, inp: FleetInputs):
+        new_state, out = self.local(state, inp)
         return new_state, out, _finalize(_partial_sums(inp, out))
 
 
-def make_live_step() -> LiveStep:
-    """The live runtime's per-tick step (single device): see LiveStep.
-    Each live fleet gets its own, since it owns that fleet's spare
-    window buffer."""
-    return LiveStep()
+# -- the mesh forms -----------------------------------------------------------
+#
+# A sharded FleetState / FleetInputs is a tuple of per-shard ones
+# (parallel.mesh). Every form below runs ONE per-shard body,
+# _local_step -> _partial_sums -> all-reduce -> _finalize, and differs
+# only in the reduction tree and in whether the ring ping-pongs.
+
+def _step_shardings(axes: tuple = ('pools',)):
+    """(state, inputs, (state, per-pool outs, aggregates)) placements
+    for one fleet_step tick: the ONE table of which leaves split by
+    rows over ``axes`` and which replicate. ``axes`` names the mesh
+    axes the pools dimension shards over: ('pools',) on a flat mesh,
+    ('host', 'chip') on a 2-D one."""
+    axes = tuple(axes)
+    pool = (axes,)
+    scalar = ()
+    state = FleetState(
+        windows=(axes, None),
+        codel=CodelState(pool, pool, pool, pool),
+        now_ms=scalar)
+    inputs = FleetInputs(
+        *([pool] * (len(FleetInputs._fields) - 1)), now_ms=scalar)
+    outs = (
+        state,
+        {'filtered': pool, 'target': pool, 'clamped': pool,
+         'drop': pool, 'retry_backoff': pool},
+        {'n_pools': scalar, 'mean_load': scalar, 'mean_filtered': scalar,
+         'overload_frac': scalar, 'max_sojourn': scalar,
+         'retry_frac': scalar, 'mean_retry_backoff': scalar})
+    return state, inputs, outs
+
+
+def _scan_shardings(axes: tuple = ('pools',)):
+    """The [T, ...] window placements: a leading unsplit time axis in
+    front of each tick placement. The final carried state has no time
+    axis; the stacked outputs and aggregates do."""
+    state, inputs, (_, outs, fleet) = _step_shardings(axes)
+    window = FleetInputs(*((None,) + spec for spec in inputs))
+    return state, window, (state,
+                           {k: (None,) + v for k, v in outs.items()},
+                           {k: (None,) + v for k, v in fleet.items()})
+
+
+class MeshStep:
+    """fleet_step over the shards of a :class:`~.mesh.Mesh`: each shard
+    runs the per-pool laws on its rows (the FIR kernel launches once
+    per shard on the card), and the fleet aggregates all-reduce over
+    the mesh. Takes and returns sharded trees: ``(states, inputs) ->
+    (states, per-pool outs, aggregates)``, each a tuple over shards.
+    With ``live``, each shard ping-pongs its own ring (see
+    :class:`LiveStep`)."""
+
+    def __init__(self, mesh: Mesh, axes: tuple = ('pools',),
+                 hierarchical: bool = False, live: bool = False):
+        self.reducer = Reducer(mesh, axes, hierarchical)
+        n = mesh.size
+        self.lives = [LiveStep() for _ in range(n)] if live else None
+        self.locals = ([ls.local for ls in self.lives] if live
+                       else [_local_step] * n)
+
+    def __call__(self, states, inps):
+        n = len(self.locals)
+        if len(states) != n or len(inps) != n:
+            raise ValueError('a %d-shard step got %d states and %d inputs'
+                             % (n, len(states), len(inps)))
+        stepped = [local(s, x) for local, s, x in
+                   zip(self.locals, states, inps)]
+        totals = self.reducer.terms(
+            [_partial_sums(x, out) for x, (_, out) in zip(inps, stepped)],
+            max_terms=('max_sojourn',))
+        return (tuple(s for s, _ in stepped), tuple(o for _, o in stepped),
+                tuple(_finalize(p) for p in totals))
+
+
+def make_sharded_step(mesh: Mesh, axes: tuple = ('pools',)) -> MeshStep:
+    """fleet_step with every [pools, ...] tensor split over the mesh
+    axes ``axes``; the aggregates reduce in one pass over the shards,
+    as GSPMD's all-reduce does."""
+    return MeshStep(mesh, axes)
+
+
+def make_shardmap_step(mesh: Mesh, axes: tuple = ('pools',)) -> MeshStep:
+    """The SPMD form of fleet_step: the aggregates reduce
+    hierarchically, innermost mesh axis first (on a 2-D ('host', 'chip')
+    mesh: over 'chip', then 'host'), as the JAX form's psum/pmax over
+    ``reversed(axes)`` does."""
+    return MeshStep(mesh, axes, hierarchical=True)
+
+
+def make_live_step(mesh: Mesh | None = None, axes: tuple = ('pools',)):
+    """The live runtime's per-tick step: see LiveStep. With a mesh, one
+    LiveStep per shard and the aggregates reduced as in
+    make_sharded_step. Each live fleet gets its own, since it owns that
+    fleet's spare window buffers."""
+    if mesh is None:
+        return LiveStep()
+    return MeshStep(mesh, axes, live=True)
+
+
+def make_sharded_scan(mesh: Mesh, axes: tuple = ('pools',)):
+    """fleet_scan with the pools axis split over the mesh: each shard
+    carries its rows through all T ticks, the per-tick aggregates
+    reduce over the mesh. Takes the sharded state and a window placed
+    by :func:`shard_window`; returns (final states, per-pool outputs
+    stacked [T, P/n] per shard, aggregates stacked [T] per shard)."""
+    step = MeshStep(mesh, axes)
+
+    def scan(states, windows):
+        outs, fleets = [], []
+        for t in range(windows[0].now_ms.shape[0]):
+            states, out, fleet = step(
+                states, tuple(FleetInputs(*(f[t] for f in w))
+                              for w in windows))
+            outs.append(out)
+            fleets.append(fleet)
+
+        def stack(per_tick, i):
+            return {k: torch.stack([tick[i][k] for tick in per_tick])
+                    for k in per_tick[0][i]}
+        n = len(states)
+        return (states, tuple(stack(outs, i) for i in range(n)),
+                tuple(stack(fleets, i) for i in range(n)))
+    return scan
+
+
+def shard_state(state: FleetState, mesh: Mesh,
+                axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(state, _step_shardings(axes)[0], mesh)
+
+
+def shard_inputs(inp: FleetInputs, mesh: Mesh,
+                 axes: tuple = ('pools',)) -> tuple:
+    return shard_tree(inp, _step_shardings(axes)[1], mesh)
+
+
+def shard_window(window: FleetInputs, mesh: Mesh,
+                 axes: tuple = ('pools',)) -> tuple:
+    """Place a [T, P] tick window onto the mesh (pools axis split)."""
+    return shard_tree(window, _scan_shardings(axes)[1], mesh)
 
 
 def fold_backend_slots(cols: dict, rows: int) -> dict:

@@ -12,7 +12,12 @@ after warm-up ticks, with its inputs made before the profiled window:
 - ``sampler``: ``FleetSampler.sample_once`` with control and health on
   over ``entry.SamplerWorkload`` at 65,536 pools (``chip_smoke.py``'s
   phase 9 workload: CoDel queues, waiting claims, 1% of pools changing
-  load and 512 attributed claims per tick), 20 ticks.
+  load and 512 attributed claims per tick), 20 ticks;
+- ``sharded_live``, ``sharded_control``, ``sharded_health`` and
+  ``mesh_sampler``: the same four over a 4-shard ``Mesh`` whose shards
+  all live on ``cuda:0`` (``make_live_step(mesh)``,
+  ``make_control_step(mesh)``, ``make_health_step(mesh)`` and
+  ``FleetSampler({'mesh': mesh})``, ``chip_smoke.py`` phases 11-12).
 
 For each it prints the device time of every kernel and copy by name
 (per tick, launches per tick, share of the device-busy time), then one
@@ -34,6 +39,7 @@ POOLS = 1 << 20
 BACKENDS = 102_400
 SAMPLER_POOLS = 1 << 16
 WARMUP, TICKS = 10, 20
+SHARDS = 4
 TOP = 15
 
 
@@ -91,14 +97,22 @@ def _profile(name: str, ticks: list) -> dict:
     }
 
 
-def _live():
+def _mesh():
+    from .parallel.mesh import Mesh
+    return Mesh([torch.device('cuda', 0)] * SHARDS, ('pools',))
+
+
+def _live(mesh=None):
     from .entry import example_inputs, tick_inputs
-    from .parallel.telemetry import make_live_step
+    from .parallel.telemetry import make_live_step, shard_inputs, shard_state
 
     rng = np.random.default_rng(5)
     st, base = example_inputs(POOLS, seed=5)
     inputs = [tick_inputs(base, rng, k) for k in range(WARMUP + TICKS)]
-    live = make_live_step()
+    live = make_live_step(mesh)
+    if mesh is not None:
+        st = shard_state(st, mesh)
+        inputs = [shard_inputs(inp, mesh) for inp in inputs]
     state = [st]
 
     def tick(inp):
@@ -108,7 +122,7 @@ def _live():
     return [lambda inp=inp: tick(inp) for inp in inputs[WARMUP:]]
 
 
-def _control():
+def _control(mesh=None):
     from .parallel import control as ctl
 
     rng = np.random.default_rng(6)
@@ -120,8 +134,11 @@ def _control():
             filtered=rng.uniform(0, 8, n), target_delay=300.0, spares=2.0,
             maximum=16.0, active=True, reset=rng.uniform(size=n) < 0.05,
             now_ms=200.0 * (k + 1)))
-    step = ctl.make_control_step()
+    step = ctl.make_control_step(mesh)
     state = [ctl.control_init(n)]
+    if mesh is not None:
+        state = [ctl.shard_control_state(state[0], mesh)]
+        inputs = [ctl.shard_control_inputs(inp, mesh) for inp in inputs]
 
     def tick(inp):
         state[0] = step(state[0], inp)[0]
@@ -130,14 +147,17 @@ def _control():
     return [lambda inp=inp: tick(inp) for inp in inputs[WARMUP:]]
 
 
-def _health():
+def _health(mesh=None):
     from .entry import health_example_columns
     from .parallel import health as hl
 
     inp = hl.health_inputs(BACKENDS, now_ms=np.float32(1000.0),
                            **health_example_columns(BACKENDS))
-    step = hl.make_health_step()
+    step = hl.make_health_step(mesh)
     state = [hl.health_init(BACKENDS)]
+    if mesh is not None:
+        state = [hl.shard_health_state(state[0], mesh)]
+        inp = hl.shard_health_inputs(inp, mesh)
 
     def tick():
         state[0] = step(state[0], inp)[0]
@@ -146,12 +166,12 @@ def _health():
     return [tick] * TICKS
 
 
-def _sampler():
+def _sampler(mesh=None):
     from .entry import SamplerWorkload
     from .parallel.sampler import FleetSampler
 
     work = SamplerWorkload(SAMPLER_POOLS)
-    s = FleetSampler(work.options())
+    s = FleetSampler(work.options(mesh=mesh))
 
     def tick():
         work.advance()
@@ -166,10 +186,16 @@ def main() -> int:
         print('profile_live: no CUDA device', file=sys.stderr)
         return 1
     summaries = []
-    for name, make in (('live', _live), ('control', _control),
-                       ('health', _health), ('sampler', _sampler)):
+    mesh = _mesh()
+    for name, make, on in (
+            ('live', _live, None), ('control', _control, None),
+            ('health', _health, None), ('sampler', _sampler, None),
+            ('sharded_live', _live, mesh),
+            ('sharded_control', _control, mesh),
+            ('sharded_health', _health, mesh),
+            ('mesh_sampler', _sampler, mesh)):
         try:
-            summaries.append(_profile(name, make()))
+            summaries.append(_profile(name, make(on)))
         except NoDeviceEvents as e:
             print('profile_live: %s' % e, file=sys.stderr)
             return 1

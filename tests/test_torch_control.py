@@ -17,6 +17,7 @@ torch = pytest.importorskip('torch')
 from cueball_tpu.parallel import control as jctl  # noqa: E402
 from cueball_tpu_torch import convert  # noqa: E402
 from cueball_tpu_torch.parallel import control as tctl  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 CPU = 'cpu'
 SOAK_ROWS = 4096
@@ -100,8 +101,16 @@ def test_defaults_to_cuda_and_mesh_is_not_ported():
     else:
         with pytest.raises(RuntimeError, match='CUDA'):
             tctl.control_init(4)
-    with pytest.raises(NotImplementedError, match='A6'):
-        tctl.make_control_step(mesh=object())
+    # The mesh form exists: a 2-shard CPU mesh steps a sharded state.
+    mesh = Mesh([CPU] * 2, ('pools',))
+    step = tctl.make_control_step(mesh=mesh)
+    states, dec, fleet = step(
+        tctl.shard_control_state(tctl.control_init(4, device=CPU), mesh),
+        tctl.shard_control_inputs(
+            tctl.control_inputs(4, device=CPU, active=True), mesh))
+    assert [s.targets.shape for s in states] == [(2,), (2,)]
+    assert [float(f['n_pools']) for f in fleet] == [4.0, 4.0]
+    assert [int(d['epoch']) for d in dec] == [1, 1]
 
 
 class FakePool:

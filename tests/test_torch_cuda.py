@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernel against its plain version, the
-control and health steps against their CPU runs, and the live sampler
-through the kernel.
+control and health steps against their CPU runs, the live sampler
+through the kernel, and the mesh forms over shards that share the card
+against the unsharded steps.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
@@ -18,6 +19,7 @@ from cueball_tpu_torch.ops import fir  # noqa: E402
 from cueball_tpu_torch.parallel import control as ctl  # noqa: E402
 from cueball_tpu_torch.parallel import health as hl  # noqa: E402
 from cueball_tpu_torch.parallel import telemetry as tel  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
 from cueball_tpu_torch.entry import (SyntheticPool,  # noqa: E402
                                      example_inputs,
@@ -143,3 +145,39 @@ def test_sampler_on_card_launches_the_fir_kernel_each_tick(card):
     assert on_card.fs_state.windows.device.type == 'cuda'
     on_card.stop()
     on_cpu.stop()
+
+
+def _leaves(state):
+    return [state.windows, *state.codel, state.now_ms]
+
+
+def test_sharded_live_step_equals_unsharded_kernel_step(card):
+    """Two shards on one card: each launches the FIR kernel on its rows,
+    so every per-pool output and state leaf equals the unsharded kernel
+    step bit for bit; the aggregates agree to rtol 1e-5, n_pools
+    exactly. Each shard ping-pongs its own ring: after the second tick
+    no [P/2, K] buffer is allocated."""
+    mesh = Mesh([card] * 2, ('pools',))
+    rng = np.random.default_rng(6)
+    state, base = example_inputs(4096, seed=6, device=card)
+    sharded = tel.shard_state(
+        type(state)(state.windows.clone(), state.codel, state.now_ms), mesh)
+    live, live2 = tel.make_live_step(), tel.make_live_step(mesh)
+    ptrs = []
+    for k in range(5):
+        inp = tick_inputs(base, rng, k)
+        state, out, fleet = live(state, inp)
+        before = fir.fir_apply_cuda.launches
+        sharded, s_out, s_fleet = live2(sharded, tel.shard_inputs(inp, mesh))
+        assert fir.fir_apply_cuda.launches == before + 2
+        ptrs.append([s.windows.data_ptr() for s in sharded])
+        got_out, got_fleet = unshard(s_out), unshard(s_fleet)
+        for name in out:
+            assert torch.equal(got_out[name], out[name]), (k, name)
+        for got, want in zip(_leaves(unshard(sharded)), _leaves(state)):
+            assert torch.equal(got, want), k
+        assert torch.equal(got_fleet['n_pools'], fleet['n_pools'])
+        for name in fleet:
+            torch.testing.assert_close(got_fleet[name], fleet[name],
+                                       rtol=1e-5, atol=1e-5)
+    assert ptrs[2] == ptrs[4] and ptrs[3] != ptrs[2]

@@ -33,6 +33,7 @@ from cueball_tpu.parallel import health as JH  # noqa: E402
 from cueball_tpu_torch import convert  # noqa: E402
 from cueball_tpu_torch._device import to_host_values  # noqa: E402
 from cueball_tpu_torch.parallel import health as TH  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 from conftest import run_async  # noqa: E402
 
@@ -278,8 +279,13 @@ def test_objectives_are_fixed_per_step_and_memoized():
     step = TH.make_health_step(objectives=tight)
     assert TH.make_health_step(objectives=tight) is step
     assert TH.make_health_step() is not step
-    with pytest.raises(NotImplementedError, match='A6'):
-        TH.make_health_step(mesh=object())
+    # The mesh form exists: a 2-shard CPU mesh steps a sharded state.
+    mesh = Mesh([CPU] * 2, ('pools',))
+    states, verdicts, fleet = TH.make_health_step(mesh=mesh)(
+        TH.shard_health_state(TH.health_init(8, device=CPU), mesh),
+        TH.shard_health_inputs(TH.health_inputs(8, device=CPU), mesh))
+    assert [s.lat_hist.shape for s in states] == [(4, TH.LAT_BINS)] * 2
+    assert [int(f['n_gray']) for f in fleet] == [0, 0]
 
 
 def test_seeded_run_matches_jax_at_2048_backends():
@@ -352,8 +358,13 @@ def test_defaults_to_cuda():
             TH.health_init(4)
         with pytest.raises(RuntimeError, match='CUDA'):
             TH.HealthMonitor()
-    with pytest.raises(NotImplementedError, match='A6'):
-        TH.HealthMonitor({'mesh': object(), 'device': CPU})
+    # The mesh option exists: rows round up to a multiple of the mesh.
+    mesh = Mesh([CPU] * 2, ('pools',))
+    mon = TH.HealthMonitor({'mesh': mesh})
+    assert mon.hm_mesh is mesh and mon.hm_device.type == 'cpu'
+    assert mon._rows_for(3) == 8 and mon._rows_for(9) == 16
+    rec = mon.tick(1000.0)
+    assert rec['epoch'] == 1 and len(mon.hm_state) == 2
 
 
 # -- host edge: table, monitor, reduce (tests/test_health.py) ---------------

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and runs its telemetry step and its live sampler (with the
-control and health planes) where JAX cannot be imported."""
+package, nor ``torch.distributed`` (its mesh is one process over a grid
+of devices), and runs its telemetry step and its live sampler (with the
+control and health planes, plain and over a mesh) where JAX cannot be
+imported."""
 
 import ast
 import os
@@ -51,24 +53,38 @@ assert rec['fleet']['n_pools'] == 1.0
 assert rec['control']['epoch'] == 2
 assert 'iso-backend' in rec['health']['backends']
 s.stop()
+
+from cueball_tpu_torch.parallel import Mesh
+meshed = FleetSampler({'monitor': mon, 'device': 'cpu', 'control': True,
+                       'health': True, 'mesh': Mesh(['cpu'] * 2, ('pools',))})
+rec = meshed.sample_once()
+assert rec['fleet']['n_pools'] == 1.0 and len(meshed.fs_state) == 2
+assert meshed.snapshot()['mesh']['n_devices'] == 2
+meshed.stop()
 assert not [m for m, mod in sys.modules.items() if mod is not None and
             m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu')]
 print('ok')
 """
 
 
+def _imported_names(node) -> list:
+    """Module names an import statement reads, with `from a import b`
+    as both `a` and `a.b`."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        base = node.module or ''
+        return [base] + ['%s.%s' % (base, a.name) for a in node.names]
+    return []
+
+
 def _forbidden_imports(path: Path) -> list:
     tree = ast.parse(path.read_text(encoding='utf-8'), filename=str(path))
     bad = []
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module or '']
-        else:
-            continue
-        for name in names:
-            if name.split('.')[0] in FORBIDDEN:
+        for name in _imported_names(node):
+            if name.split('.')[0] in FORBIDDEN or \
+                    name.startswith('torch.distributed'):
                 bad.append('%s:%d %s' % (path.name, node.lineno, name))
     return bad
 
@@ -86,7 +102,7 @@ def test_port_sources_import_no_jax():
     files.append(ROOT / 'chip_smoke.py')
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ('codel', 'events', 'host', 'monitor', 'parallel/control',
-                   'parallel/health', 'parallel/sampler'):
+                   'parallel/health', 'parallel/mesh', 'parallel/sampler'):
         assert 'cueball_tpu_torch/%s.py' % module in names
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert bad == []

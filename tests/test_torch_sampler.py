@@ -33,6 +33,7 @@ from cueball_tpu.parallel import sampler as jsampler  # noqa: E402
 from cueball_tpu_torch import convert  # noqa: E402
 from cueball_tpu_torch import monitor as tmonitor  # noqa: E402
 from cueball_tpu_torch.parallel import sampler as tsampler  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
 
 from conftest import run_async, settle  # noqa: E402
@@ -620,10 +621,15 @@ def test_defaults_start_stop_and_snapshot():
     else:
         with pytest.raises(RuntimeError, match='CUDA'):
             FleetSampler()
-    with pytest.raises(NotImplementedError, match='A6'):
-        FleetSampler({'mesh': object(), 'device': CPU})
-    with pytest.raises(NotImplementedError, match='A6'):
-        tsampler.reduce_fleet([], mesh=object())
+    # The mesh option exists: the snapshot names the mesh, and
+    # reduce_fleet takes one.
+    mesh = Mesh([CPU] * 2, ('pools',))
+    meshed = FleetSampler({'mesh': mesh, 'monitor': tmonitor.PoolMonitor()})
+    assert meshed.snapshot()['mesh'] == {
+        'axes': ['pools'], 'shape': {'pools': 2}, 'n_devices': 2}
+    assert meshed.fs_device.type == 'cpu' and meshed.fs_capacity == 8
+    assert tsampler.reduce_fleet([], mesh=mesh, mesh_axes=('pools',)) == \
+        tsampler.reduce_fleet([])
 
     async def t():
         mon = tmonitor.PoolMonitor()
