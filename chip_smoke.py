@@ -50,25 +50,63 @@ Phases, each of which exits non-zero on failure:
 12. mesh sampler (main path): phase 9's workload, one ``FleetSampler``
     over the 4-shard mesh and one without a mesh, both on the card,
     for 20 ticks: records equal (the float fleet aggregates, summed in
-    another order, to rtol 1e-5 / atol 1e-5), 4 FIR launches per tick.
+    another order, to rtol 1e-5 / atol 1e-5), 4 FIR launches per tick;
+13. router fleet passes (main path): ``shard.FleetRuntime`` over an
+    ``entry.ShardedWorkload`` of 4 shard loop threads x 16,384 pools
+    (phase 9's 65,536 pools, 64 backends, control and health on), on
+    the card, from an empty kernel build directory: first the four
+    shard loops launch the kernel at once and race to build it (one
+    nvcc runs, each launch matches the plain FIR), then 20
+    ``sample_fleet`` passes (every other one reduced over a 2x2 mesh on
+    the card and held to the flat reduce of the same rows), 20
+    ``control_fleet`` and 10 ``health_fleet``, ``advance()`` between
+    passes; every pass's row and every shard's tick record held against
+    a twin workload run through ``FleetRuntime(device='cpu')``, and the
+    FIR kernel launched exactly 4 times per pass;
+14. surfaces: the loop-lag sampler armed on each shard loop (samples on
+    each, and the fleet row's ``loop_lag_p99_us`` > 0 on the next
+    pass); ``http_server.serve_monitor`` fetched from a thread:
+    ``/kang/health`` equals ``health_snapshot()`` with ``backend-7``
+    gray, ``?limit=1`` keeps one monitor row, ``?bogus=1`` is a 400,
+    ``POST`` a 405, an unknown path a 404, ``/kang/fleet`` shows the
+    attached shard sampler; ``debug.install_debug_handler`` over a
+    recording handler and one SIGUSR2: both run, and the dump holds the
+    ``gray backend-7`` line;
+15. examples: both examples' ``main(device='cuda')`` in-process, with
+    their FIR launches counted (one per replayed tick; one per shard
+    and one plain per mesh-sampler tick), then each held against its
+    ``main(device='cpu')`` (the plain FIR) on the same seeded inputs:
+    the replay's [T, P] drops exactly, ``target`` and ``clamped``
+    exactly off their rounding boundary, every float output and fleet
+    aggregate to rtol 1e-5 / atol 1e-5; the mesh demo's per-tick drops
+    exactly and ``filtered`` to the same tolerance.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
 and prints no result.
 """
 
+import asyncio
 import json
+import logging
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
-from cueball_tpu_torch import convert
-from cueball_tpu_torch.entry import (SamplerWorkload, dryrun_multichip,
-                                     entry, example_inputs,
+from cueball_tpu_torch import convert, debug, host, http_server
+from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
+                                     dryrun_multichip, entry,
+                                     example_inputs,
                                      health_example_columns, tick_inputs)
+from cueball_tpu_torch.examples import fleet_mesh_sampler, telemetry_replay
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
 from cueball_tpu_torch.parallel import control as ctl
@@ -76,7 +114,8 @@ from cueball_tpu_torch.parallel import health as hl
 from cueball_tpu_torch.parallel import telemetry as tel
 from cueball_tpu_torch.parallel.mesh import (Mesh, tree_map,
                                              tree_map_with_path, unshard)
-from cueball_tpu_torch.parallel.sampler import FleetSampler
+from cueball_tpu_torch.parallel.sampler import FleetSampler, reduce_fleet
+from cueball_tpu_torch.shard import FleetRuntime
 
 RTOL = ATOL = 1e-5          # the tolerance of the multichip dryrun
 ENTRY_POOLS = 1024
@@ -91,6 +130,9 @@ HEALTH_BACKENDS, HEALTH_TICKS = 102_400, 10
 SAMPLER_POOLS, SAMPLER_TICKS = 1 << 16, 20
 SAMPLER_BACKENDS = 64
 SHARDS = 4                  # mesh shards, all on the one card
+# Router passes: 4 shard loops x 16,384 pools = phase 9's 65,536.
+ROUTER_POOLS = SAMPLER_POOLS // SHARDS
+ROUTER_PASSES = (('sample', 20), ('control', 20), ('health', 10))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -506,6 +548,308 @@ def check_mesh_records(tag, got, want):
     return int(wp.tp_out['drop'].sum())
 
 
+def check_reduced(tag, got, want):
+    """A reduced pass row (reduce_fleet, reduce_control or
+    reduce_health) against the CPU twin's: counts, flags and gray sets
+    exactly, floats to RTOL/ATOL."""
+    check(set(got) == set(want), '%s: keys differ' % tag)
+    for name, v in want.items():
+        g = got[name]
+        if isinstance(v, (bool, int, list)) or name == 'n_pools':
+            check(g == v, '%s: %s %r vs %r' % (tag, name, g, v))
+        else:
+            check(abs(g - v) <= ATOL + RTOL * abs(v),
+                  '%s: %s %r vs %r' % (tag, name, g, v))
+
+
+def router_phase(dev, run):
+    """Phase 13. ``run`` runs a coroutine on the main thread's loop.
+    Returns (the card's runtime and workload, still running, and the
+    phase's numbers)."""
+    phase('13 router fleet passes (main path)')
+    cold = build.BUILD_DIR.parent / 'torch_kernels_cold'
+    shutil.rmtree(cold, ignore_errors=True)
+    warm = build.BUILD_DIR
+    build.set_build_dir(cold)
+    nvcc_before = build.nvcc_runs
+    card_work = ShardedWorkload(SHARDS, ROUTER_POOLS, SAMPLER_BACKENDS)
+    cpu_work = ShardedWorkload(SHARDS, ROUTER_POOLS, SAMPLER_BACKENDS)
+    card = FleetRuntime(card_work, card_work.options())
+    twin = FleetRuntime(cpu_work, cpu_work.options(device='cpu'))
+
+    # The four shard loops launch the kernel at once, so their first
+    # launches race to build it into the empty directory.
+    taps = fir.gen_taps(TAPS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    windows = [torch.rand((ROUTER_POOLS, TAPS), generator=gen, device=dev)
+               for _ in range(SHARDS)]
+
+    async def race():
+        return await asyncio.gather(*(
+            card_work.run_on(sid, fir.fir_apply_cuda, windows[sid], taps)
+            for sid in range(SHARDS)))
+    raced = run(race())
+    torch.cuda.synchronize()
+    errs = []
+    for sid, (got, w) in enumerate(zip(raced, windows)):
+        want = fir.fir_apply_plain(w, taps)
+        torch.testing.assert_close(
+            got, want, rtol=RTOL, atol=ATOL,
+            msg=lambda m: 'router race, shard %d: %s' % (sid, m))
+        errs.append(max_errs(got, want))
+    built = sorted(p.name for p in cold.iterdir())
+    check(build.nvcc_runs - nvcc_before == 1 and
+          built == [build.library_path('fir').name],
+          'router: %d nvcc runs from the empty build directory, which '
+          'holds %s' % (build.nvcc_runs - nvcc_before, built))
+    print('router: %d shard loops launched the kernel at once from an '
+          'empty build directory; one nvcc ran; max_abs_err %.3e'
+          % (SHARDS, max(e[0] for e in errs)))
+    build.set_build_dir(warm)
+    mesh2 = Mesh(np.array([torch.device('cuda', 0)] * SHARDS,
+                          dtype=object).reshape(2, 2), ('host', 'chip'))
+    ms = {kind: [] for kind, _ in ROUTER_PASSES}
+    edge = drops = meshed = 0
+    fir.fir_apply_cuda.launches = 0
+    for kind, n_passes in ROUTER_PASSES:
+        for k in range(n_passes):
+            tag = 'router %s pass %d' % (kind, k)
+            card_work.advance()
+            cpu_work.advance()
+            mesh = mesh2 if kind == 'sample' and k % 2 else None
+            before = fir.fir_apply_cuda.launches
+            t0 = time.perf_counter()
+            if kind == 'sample':
+                got = run(card.sample_fleet(mesh=mesh))
+            else:
+                got = run(getattr(card, kind + '_fleet')())
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            n = fir.fir_apply_cuda.launches - before
+            check(n == SHARDS, '%s: %d FIR launches' % (tag, n))
+            want = run(getattr(twin, kind + '_fleet')())
+            check_reduced(tag, got, want)
+            if mesh is not None:
+                meshed += 1
+                check_reduced(tag + ' flat', got, reduce_fleet(
+                    [s.fs_latest['fleet'] for _, s in
+                     sorted(card.rt_samplers.items())]))
+            for sid in range(SHARDS):
+                e, d = check_sampler_records(
+                    '%s shard %d' % (tag, sid),
+                    card.rt_samplers[sid].fs_latest,
+                    twin.rt_samplers[sid].fs_latest)
+                edge += e
+                drops += d
+    launches = fir.fir_apply_cuda.launches
+    n_total = sum(n for _, n in ROUTER_PASSES)
+    check(launches == SHARDS * n_total,
+          'router: %d FIR launches in %d passes' % (launches, n_total))
+    check(drops > 0, 'router: no CoDel drop')
+    gray = card.health_snapshot()['gray']
+    check(gray == ['backend-7'], 'router: health judged %r gray' % gray)
+    run(twin.stop())
+    cpu_work.close()
+    out = {'launches': launches, 'passes': n_total,
+           'pools': SHARDS * ROUTER_POOLS, 'shards': SHARDS,
+           'first_pass_ms': ms['sample'][0], 'max_abs_err': max(
+               e[0] for e in errs), 'max_rel_err': max(e[1] for e in errs)}
+    print('router: %d passes over %d shards x %d pools agree with the CPU '
+          'twin (%d sample, %d of them reduced over a 2x2 mesh; %d '
+          'control; %d health); %d drops; %d row-ticks on the target '
+          'boundary; gray %s; fir launches %d (%d per pass)'
+          % (n_total, SHARDS, ROUTER_POOLS, ROUTER_PASSES[0][1], meshed,
+             ROUTER_PASSES[1][1], ROUTER_PASSES[2][1], drops, edge, gray,
+             launches, launches // n_total))
+    for kind, times in ms.items():
+        steady = times[1:]
+        mean = sum(steady) / len(steady)
+        out['%s_wall_ms_per_pass' % kind] = mean
+        out['%s_pools_per_s' % kind] = SHARDS * ROUTER_POOLS / (mean / 1e3)
+        print('router %s: first pass %.3f ms; wall ms/pass %.4f (mean of '
+              'passes 1-%d, host clock, ends in the device-to-host '
+              'copies); pools/s %.6g'
+              % (kind, times[0], mean, len(times) - 1,
+                 SHARDS * ROUTER_POOLS / (mean / 1e3)))
+    return card, card_work, out
+
+
+def surfaces_phase(run, card, card_work):
+    """Phase 14, over phase 13's runtime on the card."""
+    phase('14 surfaces')
+    for sid in range(SHARDS):
+        check(run(card_work.run_on(sid, host.start_loop_lag_sampler, 5.0)),
+              'loop-lag sampler refused on shard %d' % sid)
+    time.sleep(0.25)
+    samples = [run(card_work.run_on(sid, host.loop_lag_stats))['samples']
+               for sid in range(SHARDS)]
+    check(all(n > 0 for n in samples),
+          'loop-lag samples per shard loop: %s' % samples)
+    card_work.advance()
+    fleet = run(card.sample_fleet())
+    lag = fleet['loop_lag_p99_us']
+    check(lag > 0.0, 'fleet loop_lag_p99_us %r' % lag)
+    print('loop lag: armed on %d shard loops, samples %s; fleet '
+          'loop_lag_p99_us %.3f' % (SHARDS, samples, lag))
+
+    card_work.monitor.attach_fleet_sampler(card.rt_samplers[0])
+
+    async def serve_and_fetch():
+        server = await http_server.serve_monitor(monitor=card_work.monitor)
+        base = 'http://127.0.0.1:%d' % server.sockets[0].getsockname()[1]
+
+        def fetch(method, path):
+            req = urllib.request.Request(base + path, method=method)
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        try:
+            out = {}
+            for method, path in (('GET', '/kang/health'),
+                                 ('GET', '/kang/health?limit=1'),
+                                 ('GET', '/kang/health?bogus=1'),
+                                 ('POST', '/kang/health'),
+                                 ('GET', '/kang/nowhere'),
+                                 ('GET', '/kang/fleet')):
+                out[method, path] = await asyncio.to_thread(fetch, method,
+                                                            path)
+            return out
+        finally:
+            server.close()
+            await server.wait_closed()
+
+    got = run(serve_and_fetch())
+    status, body = got['GET', '/kang/health']
+    snap = hl.health_snapshot()
+    check(status == 200 and json.loads(body) == json.loads(json.dumps(
+        snap, default=repr)), '/kang/health differs from health_snapshot()')
+    check(json.loads(body)['fleet']['gray'] == ['backend-7'],
+          '/kang/health gray %r' % json.loads(body)['fleet']['gray'])
+    limited = json.loads(got['GET', '/kang/health?limit=1'][1])
+    check(len(limited['monitors']) == 1 and
+          limited['n_monitors'] == snap['n_monitors'],
+          '/kang/health?limit=1 kept %d rows' % len(limited['monitors']))
+    for key, code in ((('GET', '/kang/health?bogus=1'), 400),
+                      (('POST', '/kang/health'), 405),
+                      (('GET', '/kang/nowhere'), 404)):
+        check(got[key][0] == code, '%s %s: %d' % (*key, got[key][0]))
+    fleet_snap = json.loads(got['GET', '/kang/fleet'][1])
+    check(fleet_snap['attached'] and fleet_snap['shard'] == 0 and
+          fleet_snap['ticks'] == card.rt_samplers[0].fs_ticks,
+          "/kang/fleet does not show shard 0's sampler")
+    card_work.monitor.detach_fleet_sampler()
+    print('kang: /kang/health equals health_snapshot() (%d monitors, gray '
+          '%s), ?limit=1 keeps 1, ?bogus=1 400, POST 405, unknown 404; '
+          '/kang/fleet shows shard 0 at tick %d (%d bytes)'
+          % (snap['n_monitors'], snap['fleet']['gray'],
+             fleet_snap['ticks'], len(got['GET', '/kang/fleet'][1])))
+
+    recorded = []
+    dumps = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            dumps.append(record.getMessage())
+
+    capture = Capture()
+    log = logging.getLogger('cueball.debug')
+    log.addHandler(capture)
+    before = signal.signal(signal.SIGUSR2,
+                           lambda sig, frame: recorded.append(sig))
+    try:
+        prev = debug.install_debug_handler(signal.SIGUSR2)
+        os.kill(os.getpid(), signal.SIGUSR2)
+        deadline = time.monotonic() + 10.0
+        while not (recorded and dumps) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        debug.uninstall_debug_handler(prev, signal.SIGUSR2)
+    finally:
+        signal.signal(signal.SIGUSR2, before)
+        log.removeHandler(capture)
+    check(recorded == [signal.SIGUSR2], 'the chained handler ran %d times'
+          % len(recorded))
+    check(len(dumps) == 1, 'the port handler logged %d dumps' % len(dumps))
+    gray_lines = [ln for ln in dumps[0].splitlines()
+                  if ln.startswith('   gray backend-7 ')]
+    sampler_lines = [ln for ln in dumps[0].splitlines()
+                     if ln.startswith('  fleet_sampler ')]
+    check(gray_lines, 'the SIGUSR2 dump holds no gray backend-7 line')
+    check(len(sampler_lines) >= SHARDS, 'the dump lists %d samplers'
+          % len(sampler_lines))
+    print('SIGUSR2: the port dump and the chained handler both ran; %d '
+          'sampler lines, %d gray lines, e.g. %r'
+          % (len(sampler_lines), len(gray_lines), gray_lines[0].strip()))
+    run(card.stop())
+    host.stop_loop_lag_sampler()
+    card_work.close()
+
+
+def check_replay(got, want):
+    """Phase 15: a replay against another on the same window: floats to
+    RTOL/ATOL, ``drop`` exactly, ``target`` and ``clamped`` exactly off
+    their rounding boundary. Returns (max abs error of ``filtered``,
+    the rows on the boundary)."""
+    edge = convert.target_near_boundary(
+        want['outs']['filtered'], want['samples'], want['spares'])
+    for name, w in want['outs'].items():
+        g = got['outs'][name]
+        if name in ('target', 'clamped'):
+            check(np.array_equal(g[~edge], w[~edge]),
+                  'telemetry_replay: %s differs off the rounding boundary'
+                  % name)
+        elif w.dtype.kind in 'biu':
+            check(np.array_equal(g, w), 'telemetry_replay: %s differs'
+                  % name)
+        else:
+            check(np.allclose(g, w, rtol=RTOL, atol=ATOL),
+                  'telemetry_replay: %s differs' % name)
+    for name, w in want['fleets'].items():
+        check(np.allclose(got['fleets'][name], w, rtol=RTOL, atol=ATOL),
+              'telemetry_replay: aggregate %s differs' % name)
+    err = np.abs(got['outs']['filtered'] - want['outs']['filtered']).max()
+    return float(err), int(edge.sum())
+
+
+def examples_phase():
+    """Phase 15. Returns the examples' FIR launches."""
+    phase('15 examples')
+    fir.fir_apply_cuda.launches = 0
+    replay = telemetry_replay.main(device='cuda')
+    n_replay = fir.fir_apply_cuda.launches
+    check(n_replay == telemetry_replay.T,
+          'telemetry_replay: %d FIR launches for %d ticks'
+          % (n_replay, telemetry_replay.T))
+    fir.fir_apply_cuda.launches = 0
+    demo = fleet_mesh_sampler.main(device='cuda')
+    n_demo = fir.fir_apply_cuda.launches
+    want = fleet_mesh_sampler.TICKS * (demo['shards'] + 1)
+    check(n_demo == want, 'fleet_mesh_sampler: %d FIR launches, want %d'
+          % (n_demo, want))
+    # Both again with the plain FIR on the CPU, on the same seeded
+    # inputs: the card's results are held against these.
+    replay_err, replay_edge = check_replay(
+        replay, telemetry_replay.main(device='cpu'))
+    plain = fleet_mesh_sampler.main(device='cpu')
+    check(np.array_equal(demo['drop'], plain['drop']),
+          'fleet_mesh_sampler: drops differ from the CPU run')
+    check(np.allclose(demo['filtered'], plain['filtered'], rtol=RTOL,
+                      atol=ATOL),
+          'fleet_mesh_sampler: filtered differs from the CPU run')
+    demo_err = float(np.abs(demo['filtered'] - plain['filtered']).max())
+    print('examples: telemetry_replay peak %.2f at tick %d, %d FIR '
+          'launches, agrees with the CPU replay (%d drops; max_abs_err '
+          '%.3e; %d row-ticks on the target boundary); fleet_mesh_sampler '
+          '%d/%d ticks agree over %d shards, %d FIR launches, agrees with '
+          'the CPU demo (%d drops; max_abs_err %.3e)'
+          % (replay['peak_overload'], replay['peak_tick'], n_replay,
+             replay['drops'], replay_err, replay_edge, demo['agree'],
+             demo['ticks'], demo['shards'], n_demo, demo['drops'],
+             demo_err))
+    return n_replay + n_demo
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
@@ -740,6 +1084,16 @@ def main():
     meshed = mesh_phases(dev, start, end)
     print('mesh ' + json.dumps(meshed))
 
+    loop = asyncio.new_event_loop()
+    try:
+        card, card_work, routed = router_phase(dev,
+                                               loop.run_until_complete)
+        print('router ' + json.dumps(routed))
+        surfaces_phase(loop.run_until_complete, card, card_work)
+    finally:
+        loop.close()
+    example_launches = examples_phase()
+
     main_t = times[LIVE_POOLS]
     record = {
         'name': 'fir', 'route': 'cuda',
@@ -747,13 +1101,15 @@ def main():
         'replaces': 'cueball_tpu/ops/fir.py:84',
         'launches': (launches + sampler_launches
                      + meshed['sharded_live_launches']
-                     + meshed['mesh_sampler_launches']),
+                     + meshed['mesh_sampler_launches']
+                     + routed['launches'] + example_launches),
         'launches_by_path': {
             'live_step': launches, 'sampler': sampler_launches,
             'sharded_live': meshed['sharded_live_launches'],
-            'mesh_sampler': meshed['mesh_sampler_launches']},
-        'max_abs_err': max(e[0] for e in errs),
-        'max_rel_err': max(e[1] for e in errs),
+            'mesh_sampler': meshed['mesh_sampler_launches'],
+            'router': routed['launches'], 'examples': example_launches},
+        'max_abs_err': max(max(e[0] for e in errs), routed['max_abs_err']),
+        'max_rel_err': max(max(e[1] for e in errs), routed['max_rel_err']),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],
         'plain_ms': main_t['plain_ms'], 'bound_ms': main_t['bound_ms'],
         'bound_by': main_t['bound_by'],

@@ -13,10 +13,14 @@
 - :class:`SamplerWorkload` — such a fleet with CoDel queues, waiting
   claims, churning loads and attributed claims: the sampler workload
   ``chip_smoke.py`` checks and ``profile_live`` profiles.
+- :class:`ShardedWorkload` — that workload split over shard loop
+  threads, with the router surface ``shard.FleetRuntime`` drives.
 """
 
 from __future__ import annotations
 
+import asyncio
+import threading
 import types
 
 import numpy as np
@@ -314,3 +318,86 @@ class SamplerWorkload:
             ok = bool(rng.random() < 0.98)
             for sink in host.backend_sinks():
                 sink.observe(self.keys[b], ms if ok else None, ms + 1.0, ok)
+
+
+class _ShardLoop:
+    """One shard's thread running its own asyncio loop (the worker of a
+    thread-backed router): ``run(job, *args)`` awaits ``job(*args)`` on
+    that loop, awaiting it there too if it is a coroutine."""
+
+    def __init__(self, shard_id: int):
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(
+            target=self._main, name='cueball-shard-%d' % shard_id,
+            daemon=True)
+        self.thread.start()
+
+    def _main(self) -> None:
+        asyncio.set_event_loop(self.loop)
+        self.loop.run_forever()
+
+    def alive(self) -> bool:
+        return self.thread.is_alive() and not self.loop.is_closed()
+
+    def is_in_state(self, state: str) -> bool:
+        """The shard FSM's question: only 'running' is answered yes,
+        while the loop thread lives."""
+        return state == 'running' and self.alive()
+
+    @staticmethod
+    async def _call(job, args):
+        res = job(*args)
+        if asyncio.iscoroutine(res):
+            res = await res
+        return res
+
+    async def run(self, job, *args):
+        if not self.alive():
+            raise RuntimeError('shard loop is not running')
+        return await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+            self._call(job, args), self.loop))
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        if self.loop.is_closed():
+            return
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout_s)
+        if self.thread.is_alive():
+            raise RuntimeError('shard loop thread did not stop')
+        self.loop.close()
+
+
+class ShardedWorkload(SamplerWorkload):
+    """A :class:`SamplerWorkload` of ``n_shards * pools_per_shard``
+    pools split over ``n_shards`` loop threads: the card's stand-in for
+    a thread-backed ``cueball_tpu.shard.FleetRouter``, as
+    ``SamplerWorkload`` stands in for a pool monitor. Pool ``i`` is
+    stamped ``p_shard = i // pools_per_shard``, as the router stamps the
+    pools a shard owns.
+
+    It has the router surface ``shard.FleetRuntime`` reads:
+    ``fr_backend`` ('thread'), ``fr_fsms[sid].is_in_state('running')``,
+    ``fr_workers[sid].run(job, *args)`` and ``run_on(sid, job, *args)``.
+    It routes no claims and has no hash ring: it is a workload, not a
+    router. :meth:`advance` is ``SamplerWorkload.advance`` (call it
+    between passes); :meth:`close` stops the loop threads."""
+
+    fr_backend = 'thread'
+
+    def __init__(self, n_shards: int, pools_per_shard: int,
+                 n_backends: int = 64, seed: int = 9):
+        super().__init__(n_shards * pools_per_shard, n_backends, seed)
+        for i, pool in enumerate(self.pools):
+            pool.p_shard = i // pools_per_shard
+        self.fr_workers = {sid: _ShardLoop(sid) for sid in range(n_shards)}
+        self.fr_fsms = dict(self.fr_workers)
+
+    async def run_on(self, shard_id: int, job, *args):
+        worker = self.fr_workers[shard_id]
+        if not worker.is_in_state('running'):
+            raise RuntimeError('shard %d is not running' % shard_id)
+        return await worker.run(job, *args)
+
+    def close(self) -> None:
+        for worker in self.fr_workers.values():
+            worker.close()

@@ -8,6 +8,12 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when this module is imported: :func:`load` builds on
 first use, :func:`build_all` builds every source at once, one ``nvcc``
 process per source, all started together.
+
+Both take one process-wide lock, so threads that ask for a kernel at
+once (shard loops whose samplers tick on their own timers) start one
+``nvcc``: the others wait for it and load its library. Each build
+writes a temporary file named by the process and the thread and
+renames it into place, so no reader sees a half-written library.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -37,7 +44,10 @@ KERNELS = {
     }),
 }
 
+_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+#: nvcc processes started by this process (under the lock).
+nvcc_runs = 0
 
 
 def nvcc() -> str:
@@ -61,12 +71,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / ('%s-%s.so' % (name, h.hexdigest()[:16]))
 
 
+def set_build_dir(path) -> None:
+    """Build and load libraries under ``path`` from now on, forgetting
+    the libraries loaded so far: the next :func:`load` of each kernel
+    finds an empty directory and builds it."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
+        _loaded.clear()
+
+
 def build_all(names=None) -> dict:
     """Compile every named kernel (all by default) whose library is not
     built yet, one nvcc per source, in parallel. Returns {name:
     {'path', 'seconds', 'log'}}, where 'log' is nvcc's output (the
     ptxas register and shared-memory report) or '' for a library
     already built. Raises if any compile fails."""
+    with _lock:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict:
+    global nvcc_runs
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, result = {}, {}
@@ -76,12 +102,14 @@ def build_all(names=None) -> dict:
         if path.exists():
             result[name] = {'path': str(path), 'seconds': 0.0, 'log': ''}
             continue
-        tmp = path.with_name('%s.%d.tmp' % (path.name, os.getpid()))
+        tmp = path.with_name('%s.%d.%d.tmp' % (path.name, os.getpid(),
+                                              threading.get_ident()))
         cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp),
                str(CSRC / KERNELS[name][0])]
         jobs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+        nvcc_runs += 1
     failed = []
     for name, (path, tmp, proc) in jobs.items():
         log, _ = proc.communicate()
@@ -98,15 +126,21 @@ def build_all(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed,
-    with argtypes and restype set on each of its C functions."""
+    with argtypes and restype set on each of its C functions. A thread
+    that asks while another builds it waits and gets the same
+    library."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = build_all([name])[name]['path']
-        lib = ctypes.CDLL(path)
-        for fn, (argtypes, restype) in KERNELS[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = _build_all([name])[name]['path']
+            lib = ctypes.CDLL(path)
+            for fn, (argtypes, restype) in KERNELS[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _loaded[name] = lib
     return lib
 
 

@@ -13,6 +13,8 @@ forms:
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -61,7 +63,7 @@ def fir_apply_cuda(windows: torch.Tensor,
     """The FIR matvec as the hand-written kernel in csrc/fir.cu, on
     PyTorch's current stream. Raises for anything the kernel does not
     take; there is no fallback. ``fir_apply_cuda.launches`` counts the
-    kernel's launches."""
+    kernel's launches, from every thread."""
     _check_cuda_args(windows, taps)
     from ..kernels import build
 
@@ -77,11 +79,13 @@ def fir_apply_cuda(windows: torch.Tensor,
     if rc != 0:
         raise RuntimeError('FIR kernel launch failed: %s'
                            % build.error_string(lib, rc))
-    fir_apply_cuda.launches += 1
+    with _launches_lock:
+        fir_apply_cuda.launches += 1
     return out
 
 
 fir_apply_cuda.launches = 0
+_launches_lock = threading.Lock()
 
 
 def fir_apply(windows: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:

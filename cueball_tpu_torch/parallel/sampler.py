@@ -36,7 +36,10 @@ and sinks, metrics collector, loop-lag sampler) is reached through
 from __future__ import annotations
 
 import heapq
+import itertools
 import math
+import threading
+import weakref
 from collections.abc import Mapping
 
 import numpy as np
@@ -62,6 +65,21 @@ SAMPLER_INT = 200  # ms, the pools' own LP cadence
 # that clamped-stale timestamps keep their "very old" semantics.
 EPOCH_LIMIT = float(2 ** 20)
 EPOCH_MARGIN = 1000.0
+
+# Samplers created and not yet stopped, by creation order: the SIGUSR2
+# dump (``debug.dump_fleet_runtime``) lists them. Weak, so a sampler
+# dropped without stop() leaves the list.
+_SAMPLERS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+_SAMPLERS_LOCK = threading.Lock()
+_SAMPLER_SEQ = itertools.count()
+
+
+def active_samplers() -> list:
+    """Every FleetSampler of this process not yet stopped, oldest
+    first."""
+    with _SAMPLERS_LOCK:
+        return [s for _, s in sorted(_SAMPLERS.items())]
+
 
 _CONTROL_GAUGES = {
     'pressure': 'fleet overload fraction seen by the control step',
@@ -282,6 +300,9 @@ class FleetSampler:
         self.fs_timer = None
         self.fs_emitter = EventEmitter()
         self.fs_emitter.on('timeout', self.sample_once)
+        self.fs_seq = next(_SAMPLER_SEQ)
+        with _SAMPLERS_LOCK:
+            _SAMPLERS[self.fs_seq] = self
 
     # -- lifecycle -------------------------------------------------------
 
@@ -295,6 +316,8 @@ class FleetSampler:
                                                self.fs_emitter)
 
     def stop(self) -> None:
+        with _SAMPLERS_LOCK:
+            _SAMPLERS.pop(self.fs_seq, None)
         if self.fs_timer is not None:
             self.fs_timer.cancel()
             self.fs_timer = None

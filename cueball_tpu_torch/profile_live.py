@@ -17,7 +17,13 @@ after warm-up ticks, with its inputs made before the profiled window:
   ``mesh_sampler``: the same four over a 4-shard ``Mesh`` whose shards
   all live on ``cuda:0`` (``make_live_step(mesh)``,
   ``make_control_step(mesh)``, ``make_health_step(mesh)`` and
-  ``FleetSampler({'mesh': mesh})``, ``chip_smoke.py`` phases 11-12).
+  ``FleetSampler({'mesh': mesh})``, ``chip_smoke.py`` phases 11-12);
+- ``router_sample``, ``router_control`` and ``router_health``: the
+  fleet passes of ``shard.FleetRuntime`` over an
+  ``entry.ShardedWorkload`` of 4 shard loop threads x 16,384 pools
+  (``chip_smoke.py`` phase 13's workload, control and health on), 20
+  passes each after ``advance()``, the three sections over one
+  workload in turn.
 
 For each it prints the device time of every kernel and copy by name
 (per tick, launches per tick, share of the device-busy time), then one
@@ -28,6 +34,7 @@ or if a trace holds no device events.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import json
 import sys
@@ -181,24 +188,64 @@ def _sampler(mesh=None):
     return [tick] * TICKS
 
 
+class _Router:
+    """One ShardedWorkload on the card with a FleetRuntime over it,
+    driven from a loop of the calling thread."""
+
+    def __init__(self):
+        from .entry import ShardedWorkload
+        from .shard import FleetRuntime
+
+        self.work = ShardedWorkload(SHARDS, SAMPLER_POOLS // SHARDS)
+        self.runtime = FleetRuntime(self.work, self.work.options())
+        self.loop = asyncio.new_event_loop()
+
+    def passes(self, kind: str) -> list:
+        """Warm-up passes of ``kind``, then the profiled ones."""
+        def tick():
+            self.work.advance()
+            self.loop.run_until_complete(
+                getattr(self.runtime, kind + '_fleet')())
+        for _ in range(WARMUP):
+            tick()
+        return [tick] * TICKS
+
+    def close(self) -> None:
+        self.loop.run_until_complete(self.runtime.stop())
+        self.loop.close()
+        self.work.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('profile_live: no CUDA device', file=sys.stderr)
         return 1
     summaries = []
     mesh = _mesh()
-    for name, make, on in (
-            ('live', _live, None), ('control', _control, None),
-            ('health', _health, None), ('sampler', _sampler, None),
-            ('sharded_live', _live, mesh),
-            ('sharded_control', _control, mesh),
-            ('sharded_health', _health, mesh),
-            ('mesh_sampler', _sampler, mesh)):
-        try:
-            summaries.append(_profile(name, make(on)))
-        except NoDeviceEvents as e:
-            print('profile_live: %s' % e, file=sys.stderr)
-            return 1
+    router = None
+    try:
+        for name, make, on in (
+                ('live', _live, None), ('control', _control, None),
+                ('health', _health, None), ('sampler', _sampler, None),
+                ('sharded_live', _live, mesh),
+                ('sharded_control', _control, mesh),
+                ('sharded_health', _health, mesh),
+                ('mesh_sampler', _sampler, mesh),
+                ('router_sample', None, 'sample'),
+                ('router_control', None, 'control'),
+                ('router_health', None, 'health')):
+            if make is None:
+                router = router or _Router()
+                ticks = router.passes(on)
+            else:
+                ticks = make(on)
+            summaries.append(_profile(name, ticks))
+    except NoDeviceEvents as e:
+        print('profile_live: %s' % e, file=sys.stderr)
+        return 1
+    finally:
+        if router is not None:
+            router.close()
     for summary in summaries:
         print(json.dumps(summary))
     return 0

@@ -1,0 +1,152 @@
+"""The port's fleet passes over a sharded router: the counterpart of
+``cueball_tpu.shard.FleetRouter``'s ``sample_fleet``, ``control_fleet``
+and ``health_fleet`` (``shard/router.py:478-558``, ``:622-638``) and
+of the health part of its ``snapshot()`` (``:434-443``).
+
+A :class:`FleetRuntime` keeps one port ``FleetSampler`` per router
+shard and ticks each on its own shard's loop, so the sampler's row
+columns, its pools' hooks and the control step's actuation stay on the
+loop that owns those pools. The router is duck-typed: it needs
+``fr_backend``, ``fr_fsms[sid].is_in_state('running')``,
+``fr_workers[sid].run(job, *args)`` (awaitable; the sample pass uses
+it, as the JAX router does, without counting a submit) and
+``run_on(sid, job, *args)`` (awaitable; the control and health
+passes). A ``cueball_tpu.shard.FleetRouter`` with the thread or inline
+backend serves, and so does ``entry.ShardedWorkload``.
+
+The samplers live in the runtime, never in the router's
+``fr_samplers``: the JAX router's own ``snapshot()`` would reduce them
+through its health module, which imports jax.
+
+A pass awaits the shards' jobs one after another, as the JAX router
+does (``router.py:516-521``, ``:631-636``), and raises the first
+failure.
+"""
+
+from __future__ import annotations
+
+from ..errors import CueBallError
+from ..parallel.control import reduce_control
+from ..parallel.health import reduce_health
+from ..parallel.sampler import FleetSampler, reduce_fleet
+
+_SPAWN_REFUSALS = {
+    'sample_fleet': 'sample_fleet is not available on the spawn backend; '
+                    'children publish their own collectors',
+    'control_fleet': 'control_fleet is not available on the spawn '
+                     'backend; children run their own control planes',
+    'health_fleet': 'health_fleet is not available on the spawn backend; '
+                    'children run their own health monitors',
+}
+
+
+class FleetRuntime:
+    """Per-shard port samplers over a router's shards.
+
+    ``options`` go to every shard's ``FleetSampler`` with ``shard`` set
+    to the shard id: ``monitor`` (a deployment of the JAX package's
+    pools passes ``cueball_tpu.monitor.pool_monitor``), ``host`` (there,
+    ``host.seam_over(...)``), ``device`` (default CUDA, which must
+    exist), ``objectives``, ``interval``, ``control``, ``health``,
+    ``mesh``. As on the JAX router, a shard's sampler is made by its
+    first pass, and a control or health pass turns that plane on for
+    good."""
+
+    def __init__(self, router, options: dict | None = None):
+        self.rt_router = router
+        self.rt_options = dict(options or {})
+        self.rt_samplers: dict[int, FleetSampler] = {}
+
+    # -- per-shard jobs (each runs on its shard's loop) -----------------
+
+    def _sampler(self, shard_id: int, plane: str | None = None):
+        sampler = self.rt_samplers.get(shard_id)
+        if sampler is None:
+            opts = dict(self.rt_options, shard=shard_id)
+            if plane is not None:
+                opts[plane] = True
+            sampler = FleetSampler(opts)
+            self.rt_samplers[shard_id] = sampler
+        elif plane is not None:
+            setattr(sampler, 'fs_' + plane, True)
+        return sampler
+
+    def _sample_shard(self, shard_id: int) -> dict:
+        return self._sampler(shard_id).sample_once()['fleet']
+
+    def _control_shard(self, shard_id: int) -> dict:
+        # The actuation (apply_decisions on each owned pool) happens in
+        # this tick, on the loop that owns those pools.
+        return self._sampler(shard_id, 'control').sample_once()['control']
+
+    def _health_shard(self, shard_id: int) -> dict:
+        return self._sampler(shard_id, 'health').sample_once()['health']
+
+    # -- passes ----------------------------------------------------------
+
+    def _running(self) -> list:
+        return [sid for sid, fsm in sorted(self.rt_router.fr_fsms.items())
+                if fsm.is_in_state('running')]
+
+    async def _pass(self, name: str, launch) -> list:
+        """Await ``launch(sid)`` for each running shard in turn; the
+        shards' records in shard order. A shard's failure, or a shard
+        that returns no record, fails the pass."""
+        if self.rt_router.fr_backend == 'spawn':
+            raise CueBallError(_SPAWN_REFUSALS[name])
+        records = []
+        for sid in self._running():
+            rec = await launch(sid)
+            if rec is None:
+                raise CueBallError('%s: shard %d returned no record'
+                                   % (name, sid))
+            records.append(rec)
+        return records
+
+    async def sample_fleet(self, mesh=None, mesh_axes=('host', 'chip')):
+        """One sampler tick on every running shard, then the shard ->
+        host reduction (and host -> mesh when ``mesh`` is given)."""
+        router = self.rt_router
+        records = await self._pass('sample_fleet', lambda sid: (
+            router.fr_workers[sid].run(self._sample_shard, sid)))
+        return reduce_fleet(records, mesh=mesh, mesh_axes=mesh_axes)
+
+    async def control_fleet(self) -> dict:
+        """One control-plane pass: each running shard's sampler ticks
+        with control on and applies its decisions on its own loop; the
+        per-shard summaries reduce shard -> host."""
+        records = await self._pass('control_fleet', lambda sid: (
+            self.rt_router.run_on(sid, self._control_shard, sid)))
+        return reduce_control(records)
+
+    async def health_fleet(self) -> dict:
+        """One health pass: each running shard's sampler ticks with
+        health on; the verdict records merge with ``reduce_health``
+        (gray sets union, burn rates take the worst shard)."""
+        records = await self._pass('health_fleet', lambda sid: (
+            self.rt_router.run_on(sid, self._health_shard, sid)))
+        return reduce_health(records)
+
+    def health_snapshot(self) -> dict | None:
+        """The merged verdicts of the shards whose sampler runs the
+        health plane (the router snapshot's ``health``), or None when
+        none has judged yet. Reading ``hm_last`` cross-thread is safe:
+        a tick rebinds the record, never mutates it."""
+        verdicts = [s.fs_health_monitor.hm_last
+                    for s in list(self.rt_samplers.values())
+                    if s.fs_health_monitor is not None]
+        if not any(v is not None for v in verdicts):
+            return None
+        return reduce_health(verdicts)
+
+    async def stop(self) -> None:
+        """Stop every shard's sampler on its own loop (inline for a
+        shard that no longer runs) and forget them."""
+        router = self.rt_router
+        samplers, self.rt_samplers = self.rt_samplers, {}
+        for sid, sampler in sorted(samplers.items()):
+            fsm = router.fr_fsms.get(sid)
+            if fsm is not None and fsm.is_in_state('running'):
+                await router.fr_workers[sid].run(sampler.stop)
+            else:
+                sampler.stop()

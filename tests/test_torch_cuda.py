@@ -1,12 +1,16 @@
-"""The port on the card: the CUDA kernel against its plain version, the
-control and health steps against their CPU runs, the live sampler
-through the kernel, and the mesh forms over shards that share the card
-against the unsharded steps.
+"""The port on the card: the CUDA kernel against its plain version (and
+its build from four threads at once), the control and health steps
+against their CPU runs, the live sampler through the kernel, the mesh
+forms over shards that share the card against the unsharded steps,
+and the fleet passes over shard loop threads.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
+
+import asyncio
+import threading
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch.kernels import build  # noqa: E402
 from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.ops import fir  # noqa: E402
 from cueball_tpu_torch.parallel import control as ctl  # noqa: E402
@@ -21,9 +26,10 @@ from cueball_tpu_torch.parallel import health as hl  # noqa: E402
 from cueball_tpu_torch.parallel import telemetry as tel  # noqa: E402
 from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
-from cueball_tpu_torch.entry import (SyntheticPool,  # noqa: E402
-                                     example_inputs,
+from cueball_tpu_torch.entry import (ShardedWorkload,  # noqa: E402
+                                     SyntheticPool, example_inputs,
                                      health_example_columns, tick_inputs)
+from cueball_tpu_torch.shard import FleetRuntime  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +53,74 @@ def test_fir_kernel_matches_plain(card, p, k):
     assert fir.fir_apply_cuda.launches == before + 1
     torch.testing.assert_close(got, fir.fir_apply_plain(w, taps),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_build_from_four_threads(card, tmp_path):
+    """Four threads load the kernel into an empty build directory at
+    once: one nvcc runs, all four get the one library, and the kernel it
+    holds matches its plain version."""
+    saved = build.BUILD_DIR
+    build.set_build_dir(tmp_path / 'kernels')
+    try:
+        runs = build.nvcc_runs
+        libs, errors = [], []
+        barrier = threading.Barrier(4)
+
+        def ask():
+            barrier.wait()
+            try:
+                libs.append(build.load('fir'))
+            except Exception as e:     # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=ask) for _ in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        assert not any(th.is_alive() for th in threads)
+        assert errors == []
+        assert build.nvcc_runs == runs + 1
+        assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+        assert [p.name for p in (tmp_path / 'kernels').iterdir()] == [
+            build.library_path('fir').name]
+        w = torch.rand((4096, 128), device=card)
+        taps = fir.gen_taps(128, device=card)
+        torch.testing.assert_close(fir.fir_apply_cuda(w, taps),
+                                   fir.fir_apply_plain(w, taps),
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        build.set_build_dir(saved)
+
+
+def test_fleet_passes_launch_the_kernel_once_per_shard(card):
+    """FleetRuntime over a 4-shard workload on the card against its CPU
+    twin: the fleet rows agree, and each pass launches the FIR kernel
+    once per shard, from the shard loops' threads."""
+    on_card, on_cpu = ShardedWorkload(4, 512), ShardedWorkload(4, 512)
+    rt = FleetRuntime(on_card, on_card.options())
+    twin = FleetRuntime(on_cpu, on_cpu.options(device='cpu'))
+
+    async def t():
+        for k in range(3):
+            on_card.advance()
+            on_cpu.advance()
+            before = fir.fir_apply_cuda.launches
+            got = await rt.sample_fleet()
+            assert fir.fir_apply_cuda.launches == before + 4
+            want = await twin.sample_fleet()
+            assert got['n_pools'] == want['n_pools'] == 2048.0
+            for key, v in want.items():
+                assert got[key] == pytest.approx(v, rel=1e-5, abs=1e-5), key
+            assert (await rt.control_fleet())['n_pools'] == 2048.0
+            await twin.control_fleet()
+        await rt.stop()
+        await twin.stop()
+    try:
+        asyncio.run(t())
+    finally:
+        on_card.close()
+        on_cpu.close()
 
 
 def test_fir_kernel_rejects_bad_args(card):

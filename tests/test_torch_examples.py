@@ -1,0 +1,155 @@
+"""The port's two examples against the JAX package's, on the CPU.
+
+Each example runs as a user runs it, with ``python -m`` on the CPU, and
+its findings lines must be the JAX example's on the same seeded inputs.
+Then the results themselves are held row by row: the replay's [T, P]
+outputs and [T] aggregates against the JAX ``fleet_scan`` over the JAX
+example's window, and the mesh demo's per-tick ``filtered`` and
+``drop`` against the JAX example's mesh sampler over the same 12-pool
+fleet, seed and clock instants. Floats to rtol 1e-5 / atol 1e-5;
+drops exactly; ``target`` and ``clamped`` exactly off their rounding
+boundary (``convert.target_near_boundary``)."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip('torch')
+
+from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch.examples import (  # noqa: E402
+    fleet_mesh_sampler, telemetry_replay)
+
+ROOT = Path(__file__).resolve().parent.parent
+RTOL = ATOL = 1e-5
+
+
+def run_example(name: str) -> list:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run(
+        [sys.executable, '-m', 'cueball_tpu_torch.examples.' + name,
+         '--device', 'cpu'], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=20)
+    assert r.returncode == 0, r.stderr
+    return r.stdout.splitlines()
+
+
+def load_jax_example(name: str):
+    """A fresh copy of ``examples/<name>.py`` of the JAX package."""
+    pytest.importorskip('jax')
+    spec = importlib.util.spec_from_file_location(
+        'jax_example_' + name, ROOT / 'examples' / (name + '.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_telemetry_replay_finds_the_overload_peak(capsys):
+    lines = run_example('telemetry_replay')
+    assert lines[0] == ('replayed 200 ticks x 64 pools with one fleet_scan '
+                        'call (200 steps on cpu)')
+    jax_example = load_jax_example('telemetry_replay')
+    capsys.readouterr()
+    jax_example.main()
+    want = capsys.readouterr().out.splitlines()
+    assert want[0] == 'replayed 200 ticks x 64 pools in one compiled scan'
+    # Mean load, the peak's value and tick, the drops and the clamps.
+    assert lines[1:] == want[1:]
+    assert 'overload fraction peaked at 0.50 (tick 83)' in lines
+
+
+def test_telemetry_replay_matches_jax_scan_row_by_row():
+    jax_example = load_jax_example('telemetry_replay')
+    _, j_outs, j_fleets = jax_example.fleet_scan(
+        jax_example.fleet_init(jax_example.P), jax_example.synth_window())
+    got = telemetry_replay.main(device='cpu')
+    assert got['samples'].shape == (telemetry_replay.T, telemetry_replay.P)
+
+    edge = convert.target_near_boundary(
+        np.asarray(j_outs['filtered']), got['samples'], got['spares'])
+    assert set(got['outs']) == set(j_outs)
+    for name, want in j_outs.items():
+        want = np.asarray(want)
+        have = got['outs'][name]
+        assert have.shape == want.shape, name
+        if name in ('target', 'clamped'):
+            np.testing.assert_array_equal(have[~edge], want[~edge],
+                                          err_msg=name)
+        elif want.dtype.kind in 'biu':
+            np.testing.assert_array_equal(have, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(have, want, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+    assert int(edge.sum()) < edge.size // 100
+    assert set(got['fleets']) == set(j_fleets)
+    for name, want in j_fleets.items():
+        np.testing.assert_allclose(got['fleets'][name], np.asarray(want),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    assert got['drops'] == int(np.asarray(j_outs['drop']).sum()) > 0
+
+
+def test_fleet_mesh_sampler_agrees_on_every_tick():
+    lines = run_example('fleet_mesh_sampler')
+    assert lines[0] == ("12 pools sharded over 8 devices ({'pools': 8} mesh "
+                        "on cpu)")
+    assert '40/40 ticks agree with the single-device sampler' in lines
+    assert lines[-1] == 'mesh sampler demo ok'
+
+
+def test_fleet_mesh_sampler_matches_jax_example(capsys):
+    """The JAX example's own ``main`` on the tests' eight virtual
+    devices, with its clock frozen and moved 200 ms a tick as the port's
+    demo moves it, and its samplers recording each tick."""
+    from cueball_tpu import utils as mod_utils
+
+    jax_example = load_jax_example('fleet_mesh_sampler')
+    clock = [1.0e6]
+    records = {'mesh': [], 'plain': []}
+
+    class Recording(jax_example.FleetSampler):
+        def __init__(self, options):
+            super().__init__(options)
+            self.kind = 'mesh' if 'mesh' in options else 'plain'
+            if self.kind == 'plain':
+                clock[0] += 200.0      # the first tick's instant
+
+        def sample_once(self):
+            rec = super().sample_once()
+            records[self.kind].append(rec)
+            if self.kind == 'plain':
+                clock[0] += 200.0      # the next tick's instant
+            return rec
+
+    saved = mod_utils.current_millis
+    mod_utils.current_millis = jax_example.current_millis = lambda: clock[0]
+    jax_example.FleetSampler = Recording
+    try:
+        capsys.readouterr()
+        jax_example.main()
+        want_lines = capsys.readouterr().out.splitlines()
+    finally:
+        mod_utils.current_millis = saved
+
+    got = fleet_mesh_sampler.main(device='cpu')
+    lines = capsys.readouterr().out.splitlines()
+    # The same findings but for the port's added drop count.
+    assert [ln for ln in lines if not ln.startswith('codel dropped')][1:] \
+        == want_lines[1:]
+
+    ticks = fleet_mesh_sampler.TICKS
+    assert len(records['mesh']) == len(records['plain']) == ticks
+    names = sorted(records['mesh'][0]['pools'])
+    assert len(names) == 12
+    want_filtered = np.array([[r['pools'][u]['filtered'] for u in names]
+                              for r in records['mesh']], np.float32)
+    want_drop = np.array([[r['pools'][u]['drop'] for u in names]
+                          for r in records['mesh']], bool)
+    np.testing.assert_array_equal(got['drop'], want_drop)
+    np.testing.assert_allclose(got['filtered'], want_filtered,
+                               rtol=RTOL, atol=ATOL)
+    assert got['drops'] == int(want_drop.sum()) > 0

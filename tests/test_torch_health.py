@@ -16,7 +16,6 @@ reduce_health) runs the port over the JAX package's own host state
 through the ``host`` seam.
 """
 
-import types
 
 import numpy as np
 import pytest
@@ -30,7 +29,7 @@ from cueball_tpu import trace as mod_trace  # noqa: E402
 from cueball_tpu import utils as mod_utils  # noqa: E402
 from cueball_tpu import wiretap as mod_wiretap  # noqa: E402
 from cueball_tpu.parallel import health as JH  # noqa: E402
-from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch import convert, host  # noqa: E402
 from cueball_tpu_torch._device import to_host_values  # noqa: E402
 from cueball_tpu_torch.parallel import health as TH  # noqa: E402
 from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
@@ -55,20 +54,7 @@ def jax_host():
     """The port's host seam over the JAX package's process state: its
     clock (read late, so a test's frozen clock applies), timer, backend
     registry and sinks, trace collector and loop-lag sampler."""
-    def drain_native():
-        runtime = mod_trace._runtime
-        if runtime is not None:
-            runtime._drain_native()
-    return types.SimpleNamespace(
-        current_millis=lambda: mod_utils.current_millis(),
-        _Interval=mod_pool._Interval,
-        backend_index=mod_trace.backend_index,
-        backend_key_for=mod_trace.backend_key_for,
-        add_backend_sink=mod_trace.add_backend_sink,
-        remove_backend_sink=mod_trace.remove_backend_sink,
-        active_collector=mod_trace.active_collector,
-        loop_lag_p99_us=mod_wiretap.loop_lag_p99_us,
-        drain_native=drain_native)
+    return host.seam_over(mod_utils, mod_pool, mod_trace, mod_wiretap)
 
 
 # -- stepping both packages -------------------------------------------------

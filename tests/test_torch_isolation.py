@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, nor ``torch.distributed`` (its mesh is one process over a grid
-of devices), and runs its telemetry step and its live sampler (with the
-control and health planes, plain and over a mesh) where JAX cannot be
-imported."""
+of devices), and runs its telemetry step, its live sampler (with the
+control and health planes, plain and over a mesh), its fleet passes
+over shard loops, its kang routes, its debug dump and its examples'
+modules where JAX cannot be imported."""
 
 import ast
 import os
@@ -61,6 +62,27 @@ rec = meshed.sample_once()
 assert rec['fleet']['n_pools'] == 1.0 and len(meshed.fs_state) == 2
 assert meshed.snapshot()['mesh']['n_devices'] == 2
 meshed.stop()
+
+import asyncio
+import cueball_tpu_torch.examples.fleet_mesh_sampler
+import cueball_tpu_torch.examples.telemetry_replay
+from cueball_tpu_torch import debug, http_server
+from cueball_tpu_torch.entry import ShardedWorkload
+from cueball_tpu_torch.shard.fleet import FleetRuntime
+
+work = ShardedWorkload(2, 4)
+rt = FleetRuntime(work, work.options(device='cpu'))
+
+
+async def passes():
+    work.advance()
+    assert (await rt.sample_fleet())['n_pools'] == 8.0
+    await rt.health_fleet()
+    await rt.stop()
+asyncio.run(passes())
+work.close()
+assert http_server.route('GET', '/kang/nowhere')[0] == 404
+assert 'fleet runtime' in debug.dump_fleet_runtime()
 assert not [m for m, mod in sys.modules.items() if mod is not None and
             m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu')]
 print('ok')
@@ -101,8 +123,12 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / 'cueball_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     names = {str(f.relative_to(ROOT)) for f in files}
-    for module in ('codel', 'events', 'host', 'monitor', 'parallel/control',
-                   'parallel/health', 'parallel/mesh', 'parallel/sampler'):
+    for module in ('codel', 'debug', 'errors', 'events', 'host',
+                   'http_server', 'monitor', 'parallel/control',
+                   'parallel/health', 'parallel/mesh', 'parallel/sampler',
+                   'shard/__init__', 'shard/fleet', 'examples/__init__',
+                   'examples/telemetry_replay',
+                   'examples/fleet_mesh_sampler'):
         assert 'cueball_tpu_torch/%s.py' % module in names
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert bad == []
