@@ -79,7 +79,28 @@ Phases, each of which exits non-zero on failure:
     the replay's [T, P] drops exactly, ``target`` and ``clamped``
     exactly off their rounding boundary, every float output and fleet
     aggregate to rtol 1e-5 / atol 1e-5; the mesh demo's per-tick drops
-    exactly and ``filtered`` to the same tolerance.
+    exactly and ``filtered`` to the same tolerance;
+16. bench (main path): every stage of ``cueball_tpu_torch.bench`` at
+    full size (the live step at 1,048,576 pools, the sweeps at
+    ``CONTROL_SIZES`` and ``HEALTH_SIZES``, sampler ticks over 1024,
+    10240 and 102400 pools), through ``bench.run_stages`` on the card:
+    every stage lands with finite, positive rates, the stage record is
+    printed, and the FIR kernel launched in ``step_live``,
+    ``step_kernel``, ``scan`` and each tick stage and never in
+    ``step_plain``. Then, at every fleet size the stages stepped
+    (``bench.step_pools()``: 8, 1024, 10240, 65536, 102400 and
+    1,048,576 pools, on the bench's own inputs and on them with every
+    window filled with seeded loads), ``fleet_step_cuda`` and one live
+    tick are held against ``fleet_step_plain`` as in phase 3; these
+    launches are not counted as the bench's;
+17. inference fleet (main path): the script
+    ``examples_torch/inference_fleet_client.py`` for 50 requests over
+    two HTTP servers it serves in-process, in a process of its own (its
+    pools are the JAX package's framework-neutral pool layer, which this
+    script does not import), its port sampler on the card and a twin on
+    the CPU fed the same rows at the same instants: every request
+    served, the fleet aggregates of every tick within rtol 1e-5 / atol
+    1e-5 of the twin's, one FIR launch per tick.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -101,12 +122,14 @@ import urllib.request
 import numpy as np
 import torch
 
-from cueball_tpu_torch import convert, debug, host, http_server
+from cueball_tpu_torch import bench, convert, debug, host, http_server
 from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
                                      dryrun_multichip, entry,
                                      example_inputs,
                                      health_example_columns, tick_inputs)
-from cueball_tpu_torch.examples import fleet_mesh_sampler, telemetry_replay
+from cueball_tpu_torch.examples import (fleet_mesh_sampler,
+                                        inference_fleet_client,
+                                        telemetry_replay)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
 from cueball_tpu_torch.parallel import control as ctl
@@ -133,6 +156,12 @@ SHARDS = 4                  # mesh shards, all on the one card
 # Router passes: 4 shard loops x 16,384 pools = phase 9's 65,536.
 ROUTER_POOLS = SAMPLER_POOLS // SHARDS
 ROUTER_PASSES = (('sample', 20), ('control', 20), ('health', 10))
+# Bench stages that must launch the FIR kernel (step_plain must not).
+BENCH_KERNEL_STAGES = ('step_live', 'step_kernel', 'scan') + tuple(
+    'tick_cost_%d' % n for n in bench.TELEM_TICK_SIZES)
+FLEET_REQUESTS = 50
+FLEET_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'examples_torch', 'inference_fleet_client.py')
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -850,6 +879,110 @@ def examples_phase():
     return n_replay + n_demo
 
 
+def bench_phase(kind, smi):
+    """Phase 16. Returns the bench's FIR launches and the (max abs, max
+    rel) errors of the kernel at every fleet size the bench stepped."""
+    phase('16 bench stages (main path)')
+    recs = []
+    fir.fir_apply_cuda.launches = 0
+    t0 = time.perf_counter()
+    bench.run_stages(recs.append)
+    launches = fir.fir_apply_cuda.launches
+    seconds = time.perf_counter() - t0
+    rec = {}
+    for r in recs:
+        rec.update(r)
+    rec['stages_completed'] = [r['stage'] for r in recs]
+    del rec['stage']
+    print('bench ' + json.dumps(rec, sort_keys=True))
+    check(rec['stages_completed'] == bench.stage_names(),
+          'bench: stages %r' % rec['stages_completed'])
+    bad = bench.bad_rates(rec)
+    check(not bad, 'bench: rates not finite and positive: %r' % bad)
+    for stage in BENCH_KERNEL_STAGES:
+        check(rec['fir_launches_' + stage] > 0,
+              'bench: the FIR kernel did not launch in %s' % stage)
+    check(rec['fir_launches_step_plain'] == 0,
+          'bench: step_plain launched the FIR kernel')
+    check(rec['default_is_kernel'] is True,
+          'bench: the default step does not launch the kernel')
+    staged = sum(v for k, v in rec.items() if k.startswith('fir_launches_'))
+    check(staged == launches, 'bench: stages count %d FIR launches, the '
+          'counter %d' % (staged, launches))
+    check(rec['device_name'] == kind and rec['nvidia_smi'] == smi,
+          'bench: device %r / %r' % (rec['device_name'], rec['nvidia_smi']))
+
+    # The stages launched the kernel at every size of step_pools, most
+    # of which phases 2-5 do not hold: hold the kernel step and one live
+    # tick against the plain step at each, on the bench's own inputs
+    # (a fresh state's windows hold one nonzero sample, so its FIR is
+    # exact) and on them with every window filled with seeded loads.
+    # These launches are the comparison's, not the bench's.
+    errs, edge = [], 0
+    live = tel.make_live_step()
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    fir.fir_apply_cuda.launches = 0
+    sizes = bench.step_pools()
+    for n in sizes:
+        state, inp = example_inputs(n)
+        filled = state._replace(windows=torch.rand(
+            state.windows.shape, generator=gen, device='cuda') * 8.0)
+        for which, st in (('fresh', state), ('filled', filled)):
+            want = tel.fleet_step_plain(clone(st), inp)
+            for tag, step in (('kernel step', tel.fleet_step_cuda),
+                              ('live tick', live)):
+                tag = 'bench %s P=%d %s' % (tag, n, which)
+                got = step(clone(st), inp)
+                torch.cuda.synchronize()
+                errs.append(max_errs(*compare_step(tag, got, want)))
+                edge += check_target(tag, got[1], want[1], inp)
+    checked = fir.fir_apply_cuda.launches
+    check(checked == 4 * len(sizes), 'bench: %d FIR launches in %d '
+          'comparisons' % (checked, 4 * len(sizes)))
+    print('bench: the kernel step and a live tick agree with the plain '
+          'step at P=%s, fresh and filled windows (max_abs_err %.3e, '
+          'max_rel_err %.3e; %d rows on the target boundary; %d '
+          'comparison launches, not counted)'
+          % (','.join(map(str, sizes)), max(e[0] for e in errs),
+             max(e[1] for e in errs), edge, checked))
+    print('bench: %d stages in %.3f s, %d FIR launches; live %.6g pools/s, '
+          'kernel step %.6g, plain step %.6g, scan %.6g; dispatch floor '
+          '%.6g us; code_hash %s' % (
+              len(recs), seconds, launches, rec['pools_per_sec_live'],
+              rec['pools_per_sec_kernel'], rec['pools_per_sec_plain'],
+              rec['pools_per_sec_scan'], rec['dispatch_floor_us'],
+              bench.code_hash()))
+    return launches, errs
+
+
+def fleet_phase():
+    """Phase 17. Returns the example's FIR launches."""
+    phase('17 inference fleet (main path)')
+    r = subprocess.run(
+        [sys.executable, FLEET_SCRIPT, '--requests', str(FLEET_REQUESTS),
+         '--twin-device', 'cpu'], capture_output=True, text=True,
+        timeout=300)
+    print(r.stdout.rstrip())
+    check(r.returncode == 0, 'inference fleet: exit %d: %s' % (
+        r.returncode, r.stderr.strip()[-2000:]))
+    res = json.loads(r.stdout.splitlines()[-1])
+    ticks = res['ticks']
+    check(res['ok'] == FLEET_REQUESTS and res['failed'] == 0,
+          'inference fleet: %d ok, %d failed' % (res['ok'], res['failed']))
+    check(ticks == FLEET_REQUESTS // inference_fleet_client.TICK_EVERY + 1
+          and res['agree'] == [ticks],
+          'inference fleet: %r of %d ticks agree with the CPU twin'
+          % (res['agree'], ticks))
+    check(res['fir_launches'] == ticks,
+          'inference fleet: %d FIR launches in %d ticks'
+          % (res['fir_launches'], ticks))
+    check(res['fleet']['n_pools'] >= 1.0, 'inference fleet: no pool sampled')
+    print('inference fleet: %d requests, %d ticks agree with the CPU twin '
+          '(max_abs_err %.3e), %d FIR launches'
+          % (res['ok'], ticks, res['max_abs_err'][0], res['fir_launches']))
+    return res['fir_launches']
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
@@ -863,10 +996,7 @@ def main():
 
     phase('0 device')
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = bench.nvidia_smi()
     print('torch %s, CUDA %s, device %s' % (torch.__version__,
                                              torch.version.cuda, kind))
     print('nvidia-smi: %s' % smi)
@@ -1093,6 +1223,9 @@ def main():
     finally:
         loop.close()
     example_launches = examples_phase()
+    bench_launches, bench_errs = bench_phase(kind, smi)
+    errs.extend(bench_errs)
+    fleet_launches = fleet_phase()
 
     main_t = times[LIVE_POOLS]
     record = {
@@ -1102,12 +1235,14 @@ def main():
         'launches': (launches + sampler_launches
                      + meshed['sharded_live_launches']
                      + meshed['mesh_sampler_launches']
-                     + routed['launches'] + example_launches),
+                     + routed['launches'] + example_launches
+                     + bench_launches + fleet_launches),
         'launches_by_path': {
             'live_step': launches, 'sampler': sampler_launches,
             'sharded_live': meshed['sharded_live_launches'],
             'mesh_sampler': meshed['mesh_sampler_launches'],
-            'router': routed['launches'], 'examples': example_launches},
+            'router': routed['launches'], 'examples': example_launches,
+            'bench': bench_launches, 'inference_fleet': fleet_launches},
         'max_abs_err': max(max(e[0] for e in errs), routed['max_abs_err']),
         'max_rel_err': max(max(e[1] for e in errs), routed['max_rel_err']),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

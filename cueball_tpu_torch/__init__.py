@@ -28,3 +28,14 @@ __all__ = ['CodelState', 'FleetInputs', 'FleetSampler', 'FleetState',
            'fir_smooth', 'fleet_init', 'fleet_inputs', 'fleet_scan',
            'fleet_step', 'fleet_step_cuda', 'fleet_step_plain', 'gen_taps',
            'make_live_step', 'rebase_state', 'spread_delays']
+
+
+def api_modules() -> list:
+    """The port's public modules: this package and every module under it
+    but the private ones (a name part starting with ``_``).
+    ``docs/torch_api.md`` names every public name of each
+    (``tests/test_torch_docs.py``)."""
+    import pkgutil
+    return [__name__] + [
+        m.name for m in pkgutil.walk_packages(__path__, __name__ + '.')
+        if not any(part.startswith('_') for part in m.name.split('.'))]

@@ -265,15 +265,16 @@ class SyntheticPool:
             h.mark_dirty()
 
 
-def frozen_host(clock: list):
-    """The port's host seam with its clock read from ``clock[0]`` (ms),
+def frozen_host(clock: list, base=host):
+    """A host seam (the port's own by default, or ``base``, as from
+    ``host.seam_over``) with its clock read from ``clock[0]`` (ms),
     which the caller advances by hand: two samplers given it see the
     same instant."""
     names = ('_Interval', 'backend_index', 'backend_key_for',
              'add_backend_sink', 'remove_backend_sink', 'backend_sinks',
              'active_collector', 'loop_lag_p99_us', 'drain_native')
     return types.SimpleNamespace(
-        **{name: getattr(host, name) for name in names},
+        **{name: getattr(base, name) for name in names},
         current_millis=lambda: clock[0])
 
 

@@ -1,0 +1,231 @@
+"""Pooled client for a fleet of equivalent inference servers, its pools
+sampled by the port's ``FleetSampler``: the counterpart of the JAX
+package's ``examples/inference_fleet_client.py``.
+
+A host process (a request router, a data loader, an evaluation
+harness) talks to many equivalent model servers through one pool: lease
+based connection reuse, dead-backend detection with monitor probes,
+jittered exponential backoff and CoDel shedding when the fleet
+saturates. A ``FleetSampler`` samples every pool of the process each
+tick and publishes the fleet's aggregates; here it is the port's, on
+the card, ticked every ``TICK_EVERY`` requests and once after the last.
+
+The pools are the JAX package's: its HTTP agent, static resolver and
+pool monitor are a framework-neutral asyncio stack that the port does
+not copy. This module imports none of it. The caller hands the layer
+over as :func:`pool_layer` of those modules; the sampler reads the
+layer's clock, backend registry and loop lag through
+``host.seam_over``. The script ``examples_torch/inference_fleet_client.py``
+builds that layer and runs :func:`main`:
+
+    python examples_torch/inference_fleet_client.py [--requests 20] \\
+        [--device cpu] [--twin-device cpu] [IP:PORT ...]
+
+Without addresses it serves two HTTP servers of its own, in-process on
+127.0.0.1. ``--twin-device`` ticks a second sampler on that device on
+the same rows at the same instants and holds the fleet aggregates
+against it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import types
+
+import numpy as np
+
+from .. import host
+from .._device import resolve_device
+from ..entry import frozen_host
+from ..ops import fir
+from ..parallel.sampler import FleetSampler
+
+RECOVERY = {
+    # One policy object per operation class; exponential timeout and
+    # delay with randomized spread decorrelate client herds.
+    'default': {'timeout': 2000, 'retries': 3, 'delay': 250,
+                'maxDelay': 5000, 'delaySpread': 0.2},
+}
+TICK_EVERY = 10      # requests between two sampler ticks
+RTOL = ATOL = 1e-5   # fleet aggregates against a twin sampler
+POOL_HOST = 'fleet.local'
+
+
+def pool_layer(agent, resolver, monitor, utils, pool, trace, wiretap):
+    """The pool layer from the JAX package's modules (``cueball_tpu``'s
+    ``agent``, ``resolver``, ``monitor``, ``utils``, ``pool``,
+    ``trace``, ``wiretap``), passed in, never imported: the HTTP agent,
+    the static resolver, the process-wide pool monitor, and the host
+    seam over its clock, tracer and loop lag."""
+    return types.SimpleNamespace(
+        HttpAgent=agent.HttpAgent, StaticIpResolver=resolver.StaticIpResolver,
+        pool_monitor=monitor.pool_monitor,
+        host=host.seam_over(utils, pool, trace, wiretap))
+
+
+async def _answer(name: bytes, reader, writer) -> None:
+    """HTTP/1.1 keep-alive: every request is answered with the server's
+    name."""
+    try:
+        while True:
+            line = await reader.readline()
+            if not line:
+                break
+            if line in (b'\r\n', b'\n'):
+                continue
+            while (await reader.readline()) not in (b'\r\n', b'\n', b''):
+                pass
+            writer.write(b'HTTP/1.1 200 OK\r\nContent-Length: %d\r\n\r\n%s'
+                         % (len(name), name))
+            await writer.drain()
+    except ConnectionError:
+        pass
+
+
+async def _serve_fleet(names=('srv-a', 'srv-b')) -> tuple:
+    """(servers, 'IP:PORT' addresses) of one HTTP server per name, on
+    127.0.0.1 and the running loop."""
+    servers, addrs = [], []
+    for name in names:
+        s = await asyncio.start_server(
+            lambda r, w, n=name.encode(): _answer(n, r, w), '127.0.0.1', 0)
+        servers.append(s)
+        addrs.append('127.0.0.1:%d' % s.sockets[0].getsockname()[1])
+    return servers, addrs
+
+
+def _agreement(fleets: list, twin: list) -> tuple:
+    """(ticks whose every aggregate is within RTOL/ATOL of the twin's,
+    the largest absolute difference) over the aggregates of
+    ``fleets``."""
+    agree, err = 0, 0.0
+    for got, want in zip(fleets, twin):
+        g = np.array([got[k] for k in got], np.float64)
+        w = np.array([want[k] for k in got], np.float64)
+        agree += bool(np.allclose(g, w, rtol=RTOL, atol=ATOL))
+        err = max(err, float(np.abs(g - w).max()))
+    return agree, err
+
+
+async def run(layer, addrs=None, requests: int = 20, device=None,
+              twin_device=None, twins=(), target_claim_delay=None) -> dict:
+    """Send ``requests`` GETs through one pool over ``addrs`` (default:
+    two servers of its own), the port's sampler on ``device`` (default
+    the card) ticking every ``TICK_EVERY`` requests and once after the
+    last. Every twin (a sampler on ``twin_device``, and each of
+    ``twins``: anything with ``sample_once``) ticks right after it, at
+    the same instant. Returns the counts, each tick's fleet aggregates,
+    the twins' and how far they agree, and the FIR launches."""
+    dev = resolve_device(device)
+    servers = []
+    if not addrs:
+        servers, addrs = await _serve_fleet()
+    backends = []
+    for a in addrs:
+        addr, _, port = a.partition(':')
+        backends.append({'address': addr, 'port': int(port or 80)})
+    agent = layer.HttpAgent({'defaultPort': backends[0]['port'],
+                             'spares': 2, 'maximum': 8,
+                             'recovery': RECOVERY,
+                             'ping': '/healthz', 'pingInterval': 5000})
+    # A custom resolver (static IPs) rides the public create_pool API;
+    # the agent owns its lifecycle from here on.
+    agent.create_pool(POOL_HOST, {
+        'resolver': layer.StaticIpResolver({'backends': backends}),
+        'targetClaimDelay': target_claim_delay})
+    pool = agent.get_pool(POOL_HOST)
+
+    # Each tick reads the layer's clock once; every sampler sees that
+    # instant, so a twin is fed the very rows the sampler was.
+    instant = [layer.host.current_millis()]
+    opts = {'monitor': layer.pool_monitor,
+            'host': frozen_host(instant, layer.host)}
+    sampler = FleetSampler(dict(opts, device=dev))
+    twins = list(twins)
+    if twin_device is not None:
+        twins.append(FleetSampler(dict(opts, device=twin_device)))
+    layer.pool_monitor.attach_fleet_sampler(sampler)
+    fleets, twin_fleets = [], [[] for _ in twins]
+
+    def tick():
+        instant[0] = layer.host.current_millis()
+        fleets.append(sampler.sample_once()['fleet'])
+        for twin, out in zip(twins, twin_fleets):
+            out.append(twin.sample_once()['fleet'])
+
+    launches = fir.fir_apply_cuda.launches
+    ok = errs = 0
+    per_backend = {}
+    try:
+        for i in range(requests):
+            try:
+                r = await agent.request('GET', POOL_HOST, '/')
+                ok += 1
+                body = r.body[:40]
+                per_backend[body] = per_backend.get(body, 0) + 1
+            except Exception as e:
+                errs += 1
+                print('request %d failed: %r' % (i, e))
+            if (i + 1) % TICK_EVERY == 0:
+                tick()
+        tick()                 # a final tick, so short runs report too
+        launches = fir.fir_apply_cuda.launches - launches
+        stats = pool.get_stats()
+    finally:
+        if layer.pool_monitor.pm_fleet is sampler:
+            layer.pool_monitor.detach_fleet_sampler()
+        sampler.stop()
+        for twin in twins:
+            twin.stop()
+        await agent.stop()
+        for s in servers:
+            s.close()
+
+    print('done: %d ok, %d failed' % (ok, errs))
+    for body, count in sorted(per_backend.items()):
+        print('  %4d x %r' % (count, body))
+    print('pool stats:', stats)
+    fleet = fleets[-1]
+    print('fleet telemetry (%d ticks on %s, batched over %d pool(s)): %s' % (
+        len(fleets), dev, int(fleet['n_pools']),
+        {k: round(v, 2) for k, v in fleet.items()}))
+    agree, max_err = [], []
+    for twin, out in zip(twins, twin_fleets):
+        a, e = _agreement(fleets, out)
+        agree.append(a)
+        max_err.append(e)
+        print('fleet aggregates agree with %s on %d/%d ticks (max abs err '
+              '%.3e)' % (getattr(twin, 'fs_device', 'the twin'), a,
+                         len(fleets), e))
+    return {'ok': ok, 'failed': errs, 'per_backend': per_backend,
+            'ticks': len(fleets), 'fleets': fleets, 'twins': twin_fleets,
+            'agree': agree, 'max_abs_err': max_err, 'fir_launches': launches,
+            'pool_stats': stats}
+
+
+def main(layer, argv=None) -> int:
+    """The example's command line over a :func:`pool_layer`. Prints, last,
+    one JSON line of the run's counts; exits 1 when a request failed or
+    a twin disagreed."""
+    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('addrs', nargs='*', metavar='IP[:PORT]',
+                   help='backends (default: two servers in-process)')
+    p.add_argument('--requests', type=int, default=20)
+    p.add_argument('--device', default=None,
+                   help='torch device (default: the CUDA card)')
+    p.add_argument('--twin-device', default=None,
+                   help='also tick a sampler on this device and hold the '
+                        'fleet aggregates against it')
+    p.add_argument('--target-claim-delay', type=int, default=None,
+                   help='enable CoDel shedding at this sojourn (ms)')
+    args = p.parse_args(argv)
+    res = asyncio.run(run(layer, args.addrs, args.requests, args.device,
+                          args.twin_device,
+                          target_claim_delay=args.target_claim_delay))
+    print(json.dumps({k: res[k] for k in (
+        'ok', 'failed', 'ticks', 'agree', 'max_abs_err', 'fir_launches')}
+        | {'fleet': res['fleets'][-1]}))
+    good = res['failed'] == 0 and all(a == res['ticks'] for a in res['agree'])
+    return 0 if good else 1

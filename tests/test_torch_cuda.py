@@ -2,7 +2,7 @@
 its build from four threads at once), the control and health steps
 against their CPU runs, the live sampler through the kernel, the mesh
 forms over shards that share the card against the unsharded steps,
-and the fleet passes over shard loop threads.
+the fleet passes over shard loop threads, and the port bench's stages.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
@@ -17,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
-from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch import bench, convert  # noqa: E402
 from cueball_tpu_torch.kernels import build  # noqa: E402
 from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.ops import fir  # noqa: E402
@@ -255,3 +255,22 @@ def test_sharded_live_step_equals_unsharded_kernel_step(card):
             torch.testing.assert_close(got_fleet[name], fleet[name],
                                        rtol=1e-5, atol=1e-5)
     assert ptrs[2] == ptrs[4] and ptrs[3] != ptrs[2]
+
+
+def test_bench_stages_measure_the_kernel(card):
+    """The port bench's guarded run at its small sizes: every stage
+    lands with finite, positive rates, the FIR kernel launches in the
+    live, kernel, scan and tick stages and never in the plain one, and
+    the record names the card and its power limit."""
+    rec = bench.run_guarded(timeout_s=600.0, pools=bench.TELEM_SMALL)
+    assert 'error' not in rec, rec.get('error')
+    assert rec['stages_completed'] == bench.stage_names(bench.TELEM_SMALL)
+    assert bench.bad_rates(rec) == []
+    for stage in ('step_live', 'step_kernel', 'scan', 'tick_cost_1024',
+                  'tick_cost_10240'):
+        assert rec['fir_launches_' + stage] > 0, stage
+    assert rec['fir_launches_step_plain'] == 0
+    assert rec['default_is_kernel'] is True
+    assert rec['device_name'] == torch.cuda.get_device_name(0)
+    assert rec['power_limit'].endswith(' W')
+    assert rec['code_hash'] == bench.code_hash()

@@ -10,8 +10,11 @@ fleet, seed and clock instants. Floats to rtol 1e-5 / atol 1e-5;
 drops exactly; ``target`` and ``clamped`` exactly off their rounding
 boundary (``convert.target_near_boundary``)."""
 
+import asyncio
 import importlib.util
+import json
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +26,7 @@ pytest.importorskip('torch')
 
 from cueball_tpu_torch import convert  # noqa: E402
 from cueball_tpu_torch.examples import (  # noqa: E402
-    fleet_mesh_sampler, telemetry_replay)
+    fleet_mesh_sampler, inference_fleet_client, telemetry_replay)
 
 ROOT = Path(__file__).resolve().parent.parent
 RTOL = ATOL = 1e-5
@@ -153,3 +156,78 @@ def test_fleet_mesh_sampler_matches_jax_example(capsys):
     np.testing.assert_allclose(got['filtered'], want_filtered,
                                rtol=RTOL, atol=ATOL)
     assert got['drops'] == int(want_drop.sum()) > 0
+
+
+def _pool_layer():
+    """The JAX package's pool layer, as the example's script builds it."""
+    from cueball_tpu import (agent, monitor, pool, resolver, trace, utils,
+                             wiretap)
+    return inference_fleet_client.pool_layer(agent, resolver, monitor, utils,
+                                             pool, trace, wiretap)
+
+
+def test_inference_fleet_client_matches_jax_sampler(monkeypatch, capsys):
+    """Real pools over two in-process HTTP servers, sampled by the port's
+    FleetSampler on the CPU and, at the same instants, by the JAX
+    example's sampler: the ``FleetSampler({})`` that its
+    ``start_fleet_sampler`` builds, ticked by the port's example
+    instead of by its own timer. The clock is frozen and moved 200 ms
+    after each tick; the fleet aggregates agree tick for tick."""
+    pytest.importorskip('jax')
+    from cueball_tpu import utils as mod_utils
+    from cueball_tpu.parallel import FleetSampler as JaxFleetSampler
+
+    clock = [1.0e6]
+    monkeypatch.setattr(mod_utils, 'current_millis', lambda: clock[0])
+
+    class Advancing:
+        def __init__(self, sampler):
+            self.sampler = sampler
+
+        def sample_once(self):
+            rec = self.sampler.sample_once()
+            clock[0] += 200.0          # the next tick's instant
+            return rec
+
+        def stop(self):
+            self.sampler.stop()
+
+    async def go():
+        twin = Advancing(JaxFleetSampler({}))
+        return await inference_fleet_client.run(
+            _pool_layer(), requests=24, device='cpu', twins=[twin])
+
+    got = asyncio.run(go())
+    out = capsys.readouterr().out
+    assert 'done: 24 ok, 0 failed' in out
+    assert "'mean_load'" in out
+    assert got['ok'] == 24 and got['failed'] == 0
+    assert got['ticks'] == 3 and got['agree'] == [3]
+    assert got['fir_launches'] == 0
+    assert set(got['per_backend']) == {b'srv-a', b'srv-b'}
+    (want,) = got['twins']
+    for mine, theirs in zip(got['fleets'], want):
+        assert mine['n_pools'] >= 1
+        for name, value in mine.items():
+            np.testing.assert_allclose(value, theirs[name], rtol=RTOL,
+                                       atol=0, err_msg=name)
+    assert got['fleets'][-1]['mean_filtered'] > got['fleets'][0][
+        'mean_filtered'] > 0
+
+
+def test_inference_fleet_client_script_with_cpu_twin(monkeypatch, capsys):
+    """The example's script as a user runs it, in-process, on the CPU,
+    with a twin sampler on the CPU."""
+    monkeypatch.setattr(sys, 'argv', [
+        'inference_fleet_client.py', '--requests', '12', '--device', 'cpu',
+        '--twin-device', 'cpu'])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(str(ROOT / 'examples_torch' /
+                           'inference_fleet_client.py'), run_name='__main__')
+    assert done.value.code == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == 'done: 12 ok, 0 failed'
+    assert 'fleet aggregates agree with cpu on 2/2 ticks' in lines[-2]
+    summary = json.loads(lines[-1])
+    assert summary['ok'] == 12 and summary['agree'] == [2]
+    assert summary['fleet']['n_pools'] >= 1

@@ -2,8 +2,11 @@
 package, nor ``torch.distributed`` (its mesh is one process over a grid
 of devices), and runs its telemetry step, its live sampler (with the
 control and health planes, plain and over a mesh), its fleet passes
-over shard loops, its kang routes, its debug dump and its examples'
-modules where JAX cannot be imported."""
+over shard loops, its kang routes, its debug dump, its examples'
+modules, its bench and its chip-capture tool where JAX cannot be
+imported. The inference-fleet example's script is the one file that
+reaches the JAX package: it passes that package's framework-neutral pool
+layer in, and imports none of its JAX modules."""
 
 import ast
 import os
@@ -16,11 +19,13 @@ import pytest
 pytest.importorskip('torch')
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__')
+FORBIDDEN = ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__', 'bench',
+             'tools')
 
 _NO_JAX = """
 import sys
-for name in ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__'):
+for name in ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__', 'bench',
+             'tools'):
     sys.modules[name] = None
 import cueball_tpu_torch as ct
 from cueball_tpu_torch.entry import entry
@@ -82,9 +87,17 @@ async def passes():
 asyncio.run(passes())
 work.close()
 assert http_server.route('GET', '/kang/nowhere')[0] == 404
+
+import cueball_tpu_torch.examples.inference_fleet_client
+import cueball_tpu_torch.tools.chip_bench
+from cueball_tpu_torch import bench
+stages = []
+bench.run_stages(stages.append, device='cpu', pools=64, max_iters=1)
+assert [r['stage'] for r in stages] == bench.stage_names(64)
 assert 'fleet runtime' in debug.dump_fleet_runtime()
 assert not [m for m, mod in sys.modules.items() if mod is not None and
-            m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu')]
+            m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu', 'bench',
+                                'tools')]
 print('ok')
 """
 
@@ -128,7 +141,35 @@ def test_port_sources_import_no_jax():
                    'parallel/health', 'parallel/mesh', 'parallel/sampler',
                    'shard/__init__', 'shard/fleet', 'examples/__init__',
                    'examples/telemetry_replay',
-                   'examples/fleet_mesh_sampler'):
+                   'examples/fleet_mesh_sampler',
+                   'examples/inference_fleet_client', 'bench',
+                   'tools/__init__', 'tools/chip_bench'):
         assert 'cueball_tpu_torch/%s.py' % module in names
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert bad == []
+
+
+def test_example_script_reaches_only_the_pool_layer():
+    """``examples_torch/inference_fleet_client.py`` imports the port and,
+    of the JAX package, only the framework-neutral modules of its pool
+    layer: no JAX, no ``cueball_tpu.parallel`` or ``cueball_tpu.ops``.
+    It runs with JAX unimportable."""
+    script = ROOT / 'examples_torch' / 'inference_fleet_client.py'
+    tree = ast.parse(script.read_text(encoding='utf-8'))
+    names = [n for node in ast.walk(tree) for n in _imported_names(node)]
+    reached = {n for n in names if n.split('.')[0] == 'cueball_tpu'}
+    assert reached == {'cueball_tpu'} | {
+        'cueball_tpu.' + m for m in ('agent', 'monitor', 'pool', 'resolver',
+                                     'trace', 'utils', 'wiretap')}
+    assert not [n for n in names if n.split('.')[0] in ('jax', 'jaxlib')]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    code = ("import runpy, sys\n"
+            "for name in ('jax', 'jaxlib'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['inference_fleet_client.py', '--requests', '4',\n"
+            "            '--device', 'cpu']\n"
+            "runpy.run_path(%r, run_name='__main__')\n" % str(script))
+    r = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[0] == 'done: 4 ok, 0 failed'
