@@ -100,7 +100,22 @@ Phases, each of which exits non-zero on failure:
     script does not import), its port sampler on the card and a twin on
     the CPU fed the same rows at the same instants: every request
     served, the fleet aggregates of every tick within rtol 1e-5 / atol
-    1e-5 of the twin's, one FIR launch per tick.
+    1e-5 of the twin's, one FIR launch per tick;
+18. non-finite inputs: the card's raw ``.to(torch.int32)`` of NaN, +-inf,
+    +-4e9 and 2.5 printed, and ``to_int32_xla`` (XLA's saturating cast,
+    which the control and health steps use) equal on the card and the
+    CPU over its edges and 10,000 seeded values; the fixed non-finite
+    rows (five control cases in one 16-pool tick, two health
+    ``lat_sum`` columns over 8 backends) bit-identical on the card to
+    the CPU port, to the JAX package's numbers frozen here and to the
+    4-shard step; then 4 chained ticks of the control step at 1,048,576
+    pools and of the health step at 102,400 backends with 1% of each
+    float column replaced by NaN, +-inf, -5, +-4e9, 0 or 1e-30: held
+    against the CPU port as in phases 7 and 8 (NaN equal to NaN), and
+    the 4-shard steps bit for bit against the unsharded ones; last,
+    the launches and device busy time per control and health step, as
+    ``profile_live`` counts them, beside phases 7 and 8's times and the
+    nvidia-smi line.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -122,7 +137,10 @@ import urllib.request
 import numpy as np
 import torch
 
-from cueball_tpu_torch import bench, convert, debug, host, http_server
+from cueball_tpu_torch import (bench, convert, debug, host, http_server,
+                               profile_live)
+from cueball_tpu_torch._cast import to_int32_xla
+from cueball_tpu_torch._device import to_host_values
 from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
                                      dryrun_multichip, entry,
                                      example_inputs,
@@ -166,6 +184,59 @@ FLEET_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+# Phase 18: non-finite and out-of-range inputs. The JAX package casts
+# float to int32 with XLA's saturating convert; these rows are where a
+# cast that does not saturate shows. The CPU tests hold every frozen
+# number below against the JAX package itself.
+NAN, INF = float('nan'), float('inf')
+#: What phase 18 prints the card's raw ``.to(torch.int32)`` of.
+RAW_CAST_PROBE = (NAN, INF, -INF, 4e9, -4e9, 2.5)
+#: The cast's edges: the probe, both int32 bounds as floats, the float32
+#: values next to them, halves, a signed zero and the float32 extremes.
+CAST_EDGES = RAW_CAST_PROBE + (-2.5, 2.0 ** 31, -2.0 ** 31, 2147483520.0,
+                               -2147483904.0, 0.5, -0.5, -0.0, 3e38, -3e38)
+#: What a fuzzed float column's specials are drawn from.
+SPECIALS = (NAN, INF, -INF, -5.0, 4e9, -4e9, 0.0, 1e-30)
+SPECIAL_SHARE = 0.01
+NONFINITE_TICKS = 4
+PROFILED_STEPS = 10
+#: One control tick from ``control_init(16)`` at ``now_ms`` 100, every
+#: row active: case k sets row k's columns, the other rows are ordinary
+#: (rows 8-15 over their CoDel target).
+NONFINITE_POOLS = 16
+NONFINITE_CONTROL_CASES = (
+    ('spares_4e9_maximum_inf', {'spares': 4e9, 'maximum': INF}),
+    ('samples_nan', {'samples': NAN}),
+    ('samples_inf', {'samples': INF}),
+    ('spares_nan', {'spares': NAN}),
+    ('maximum_nan', {'maximum': NAN}),
+)
+#: ``cueball_tpu.parallel.control.control_step``'s decisions on all five
+#: cases in one fleet.
+JAX_NONFINITE_DECISIONS = {
+    'codel_target': [300.0] * 8 + [262.0] * 8,
+    'plan_spares': [2147483647, 2, 2, 0, 0] + [2] * 3 + [3] * 8,
+    'plan_target': [2147483647, 0, 16, 0, 0] + [5] * 11,
+    'delta': [0, 0, -2147483631, 0, -5] + [0] * 11,
+    'epoch': 1,
+}
+#: One health tick from ``health_init(8)``, one claim per backend, every
+#: row active and eligible, over each of two ``lat_sum`` columns: a mean
+#: below -1 ms makes ``log2(1 + ewma)`` NaN, and so do NaN and +inf.
+NONFINITE_BACKENDS = 8
+NONFINITE_LAT_SUMS = (
+    ('mean_below_minus_one', (10.0, -5.0, 30.0, 7.0, 5.0, 5.0, 5.0, 5.0)),
+    ('nan_and_inf', (10.0, NAN, 30.0, INF, 5.0, 5.0, 5.0, 5.0)),
+)
+#: ``cueball_tpu.parallel.health.health_step``'s score column for each
+#: ``lat_sum`` column, and its fleet row's counts for both.
+JAX_NONFINITE_SCORES = {
+    'mean_below_minus_one': [55, 0, 79, 48, 41, 41, 41, 41],
+    'nan_and_inf': [55, 0, 79, 255, 41, 41, 41, 41],
+}
+JAX_NONFINITE_HEALTH_FLEET = {'n_backends': 7, 'median_score': 41,
+                              'mad_score': 0, 'n_gray': 0}
 
 
 class SmokeFailure(Exception):
@@ -251,28 +322,87 @@ def cpu_copy(tree):
     return type(tree)(*(t.cpu() for t in tree))
 
 
-def check_control(tag, got, want):
+def cast_vector(seed=0):
+    """CAST_EDGES, then 10,000 seeded normal values times 1e9, as
+    float32."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        np.asarray(CAST_EDGES, np.float32),
+        (rng.standard_normal(10_000) * 1e9).astype(np.float32)])
+
+
+def with_specials(rng, col, share):
+    """A float32 copy of ``col`` with ``share`` of its rows, drawn by
+    ``rng``, replaced by values drawn from SPECIALS."""
+    out = np.array(col, np.float32)
+    rows = rng.random(out.shape[0]) < share
+    out[rows] = rng.choice(np.asarray(SPECIALS, np.float32), int(rows.sum()))
+    return out
+
+
+def nonfinite_control_columns(cases):
+    """Numpy columns of one control tick over NONFINITE_POOLS pools,
+    with the k-th dict of ``cases`` setting row k's columns."""
+    n = NONFINITE_POOLS
+    cols = dict(samples=np.full(n, 3.0, np.float32),
+                sojourns=np.repeat(np.float32([100.0, 400.0]), n // 2),
+                filtered=np.full(n, 3.0, np.float32),
+                target_delay=np.full(n, 300.0, np.float32),
+                spares=np.full(n, 2.0, np.float32),
+                maximum=np.full(n, 16.0, np.float32),
+                active=np.ones(n, bool), reset=np.zeros(n, bool),
+                now_ms=np.float32(100.0))
+    for row, overrides in enumerate(cases):
+        for name, v in overrides.items():
+            cols[name][row] = v
+    return cols
+
+
+def nonfinite_health_columns(lat_sum):
+    """Numpy columns of one health tick over NONFINITE_BACKENDS
+    backends that each served one claim, ``lat_sum`` ms in all."""
+    n = NONFINITE_BACKENDS
+    return dict(lat_sum=np.asarray(lat_sum, np.float32),
+                lat_count=np.ones(n, np.int32), active=np.ones(n, bool),
+                eligible=np.ones(n, bool), now_ms=np.float32(1000.0))
+
+
+def same(got, want):
+    """Equal dtype, shape and values; with ``equal_nan`` semantics for
+    floats (NaN where the other holds NaN)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def check_control(tag, got, want, equal_nan=False):
     """Hold one control step's (state, decisions, fleet) against the
     CPU run's: every decision and the carried state bit for bit,
-    `mean_load` to rtol 1e-5."""
+    `mean_load` to rtol 1e-5. With ``equal_nan``, NaN in a float column
+    equals NaN in the same row."""
     (gs, gd, gf), (ws, wd, wf) = got, want
+    eq = same if equal_nan else torch.equal
     for name in wd:
-        check(torch.equal(gd[name].cpu(), wd[name]),
-              '%s: %s differs' % (tag, name))
-    check(torch.equal(gs.targets.cpu(), ws.targets), '%s: targets' % tag)
+        check(eq(gd[name].cpu(), wd[name]), '%s: %s differs' % (tag, name))
+    check(eq(gs.targets.cpu(), ws.targets), '%s: targets' % tag)
     for name in ('n_pools', 'pressure', 'max_sojourn'):
-        check(torch.equal(gf[name].cpu(), wf[name]), '%s: %s' % (tag, name))
+        check(eq(gf[name].cpu(), wf[name]), '%s: %s' % (tag, name))
     torch.testing.assert_close(gf['mean_load'].cpu(), wf['mean_load'],
-                               rtol=RTOL, atol=0)
+                               rtol=RTOL, atol=0, equal_nan=equal_nan)
 
 
-def check_health(tag, got, want):
+def check_health(tag, got, want, equal_nan=False):
     """Hold one health step against the CPU run's: `gray` and `score`
     exactly off the score boundary; the fleet's counts that do not read
     `score` exactly; median, MAD and `n_gray` exactly when no backend is
     on the boundary, else within how far that many +-1 flips of `score`
-    can move them; floats to rtol 1e-5. Returns the number of backends
-    on the boundary."""
+    can move them; floats to rtol 1e-5 (with ``equal_nan``, NaN equals
+    NaN in the same row). Returns the number of backends on the
+    boundary."""
     (_, gv, gf), (_, wv, wf) = got, want
     edge = convert.health_score_near_boundary(wv['ewma_ms'].numpy())
     off = torch.as_tensor(~edge)
@@ -282,7 +412,7 @@ def check_health(tag, got, want):
     check(torch.equal(gv['epoch'].cpu(), wv['epoch']), '%s: epoch' % tag)
     for name in ('ewma_ms', 'z'):
         torch.testing.assert_close(gv[name].cpu(), wv[name], rtol=RTOL,
-                                   atol=ATOL)
+                                   atol=ATOL, equal_nan=equal_nan)
     n_edge = int(edge.sum())
     # median_score, mad_score, n_gray: the median moves by at most one,
     # each deviation by that plus its own flip, each flip one verdict.
@@ -291,7 +421,8 @@ def check_health(tag, got, want):
     for name, want_v in wf.items():
         got_v = gf[name].cpu()
         if want_v.dtype.is_floating_point:
-            torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL,
+                                       equal_nan=equal_nan)
         elif name in slack:
             check(got_v.dtype == want_v.dtype and
                   abs(int(got_v) - int(want_v)) <= slack[name],
@@ -360,11 +491,13 @@ def leaves(tree):
     return out
 
 
-def check_same(tag, got, want):
-    """Two trees of tensors equal leaf by leaf, dtype and bits."""
+def check_same(tag, got, want, equal_nan=False):
+    """Two trees of tensors equal leaf by leaf, dtype and bits; with
+    ``equal_nan``, NaN equals NaN in the same place."""
     for (path, g), (_, w) in zip(leaves(got), leaves(want)):
-        check(g.dtype == w.dtype and torch.equal(g, w),
-              '%s: %s differs' % (tag, path))
+        ok = same(g, w) if equal_nan else (g.dtype == w.dtype
+                                           and torch.equal(g, w))
+        check(ok, '%s: %s differs' % (tag, path))
 
 
 def check_sharded(tag, got, want):
@@ -449,14 +582,7 @@ def mesh_phases(dev, start, end):
         end.record()
         torch.cuda.synchronize()
         ctl_ms.append(start.elapsed_time(end))
-        gs, gd, gf = (unshard(t) for t in c_got)
-        check_same('sharded control tick %d state' % k, gs, c_want[0])
-        check_same('sharded control tick %d decisions' % k, gd, c_want[1])
-        for name in ('n_pools', 'pressure', 'max_sojourn'):
-            check(torch.equal(gf[name], c_want[2][name]),
-                  'sharded control tick %d: %s' % (k, name))
-        torch.testing.assert_close(gf['mean_load'], c_want[2]['mean_load'],
-                                   rtol=RTOL, atol=0)
+        check_control_sharded('sharded control tick %d' % k, c_got, c_want)
         c_ref, c_sh = c_want[0], c_got[0]
     live_ms_tick = sum(live_ms[1:]) / (len(live_ms) - 1)
     ctl_ms_step = sum(ctl_ms[1:]) / (len(ctl_ms) - 1)
@@ -983,6 +1109,183 @@ def fleet_phase():
     return res['fir_launches']
 
 
+def check_control_sharded(tag, got, want, equal_nan=False):
+    """A sharded control step's (states, decisions, fleets) against the
+    unsharded step's on the card: state, decisions and the fleet counts
+    bit for bit, `mean_load` (summed in another order) to rtol 1e-5.
+    With ``equal_nan``, NaN equals NaN in the same place."""
+    gs, gd, gf = (unshard(t) for t in got)
+    ws, wd, wf = want
+    check_same(tag + ' state', gs, ws, equal_nan)
+    check_same(tag + ' decisions', gd, wd, equal_nan)
+    for name in ('n_pools', 'pressure', 'max_sojourn'):
+        check(same(gf[name], wf[name]) if equal_nan
+              else torch.equal(gf[name], wf[name]), '%s: %s' % (tag, name))
+    torch.testing.assert_close(gf['mean_load'], wf['mean_load'], rtol=RTOL,
+                               atol=0, equal_nan=equal_nan)
+
+
+def nonfinite_rows_phase(dev, mesh):
+    """Phase 18's fixed rows: one control tick over the five cases and
+    one health tick over each ``lat_sum`` column, on the card, against
+    the CPU, the JAX package's frozen numbers and the 4-shard step."""
+    n = NONFINITE_POOLS
+    inp = ctl.control_inputs(n, device=dev, **nonfinite_control_columns(
+        [case for _, case in NONFINITE_CONTROL_CASES]))
+    got = ctl.control_step(ctl.control_init(n, device=dev), inp)
+    check_control('non-finite control rows', got, ctl.control_step(
+        ctl.control_init(n, device='cpu'), cpu_copy(inp)), equal_nan=True)
+    for name, want in JAX_NONFINITE_DECISIONS.items():
+        check(got[1][name].tolist() == want,
+              'non-finite control rows: %s %r, the JAX package %r'
+              % (name, got[1][name].tolist(), want))
+    sharded = ctl.make_control_step(mesh)(
+        ctl.shard_control_state(ctl.control_init(n, device=dev), mesh),
+        ctl.shard_control_inputs(inp, mesh))
+    check_control_sharded('non-finite control rows sharded', sharded, got,
+                          equal_nan=True)
+    print('control rows: %s bit-identical to the CPU port, the JAX '
+          "package's numbers and the %d-shard step; plan_target %s, "
+          'plan_spares %s, delta %s'
+          % (', '.join(name for name, _ in NONFINITE_CONTROL_CASES),
+             SHARDS, *(got[1][k][:len(NONFINITE_CONTROL_CASES)].tolist()
+                       for k in ('plan_target', 'plan_spares', 'delta'))))
+
+    b = NONFINITE_BACKENDS
+    mhealth = hl.make_health_step(mesh)
+    for name, lat_sum in NONFINITE_LAT_SUMS:
+        tag = 'non-finite health rows %s' % name
+        inp = hl.health_inputs(b, device=dev,
+                               **nonfinite_health_columns(lat_sum))
+        got = hl.health_step(hl.health_init(b, device=dev), inp)
+        check_health(tag, got, hl.health_step(
+            hl.health_init(b, device='cpu'), cpu_copy(inp)), equal_nan=True)
+        score = got[1]['score'].tolist()
+        check(score == JAX_NONFINITE_SCORES[name] and
+              not got[1]['gray'].any().item(),
+              '%s: score %r, the JAX package %r'
+              % (tag, score, JAX_NONFINITE_SCORES[name]))
+        fleet = to_host_values({k: got[2][k]
+                                for k in JAX_NONFINITE_HEALTH_FLEET})
+        check(fleet == JAX_NONFINITE_HEALTH_FLEET, '%s: fleet %r, the JAX '
+              'package %r' % (tag, fleet, JAX_NONFINITE_HEALTH_FLEET))
+        sharded = mhealth(hl.shard_health_state(hl.health_init(
+            b, device=dev), mesh), hl.shard_health_inputs(inp, mesh))
+        for part, g, w in zip(('state', 'verdicts', 'fleet'), sharded, got):
+            check_same('%s sharded %s' % (tag, part), unshard(g), w,
+                       equal_nan=True)
+        print('health rows %s: lat_sum %s, score %s, fleet %s, bit-identical '
+              "to the CPU port, the JAX package's numbers and the %d-shard "
+              'step' % (name, list(lat_sum), score, fleet, SHARDS))
+
+
+def nonfinite_phase(dev, smi, ctl_ms_step, health_ms_step):
+    """Phase 18. Returns its numbers for the summary line."""
+    phase('18 non-finite inputs')
+    probe = torch.tensor(RAW_CAST_PROBE, dtype=torch.float32)
+    raw_card = probe.to(dev).to(torch.int32).tolist()
+    print('raw cast: .to(torch.int32) of %s gives %s on the card (%s), %s '
+          'on the CPU; to_int32_xla gives %s on the card'
+          % (list(RAW_CAST_PROBE), raw_card, torch.cuda.get_device_name(0),
+             probe.to(torch.int32).tolist(),
+             to_int32_xla(probe.to(dev)).tolist()))
+    vec = torch.from_numpy(cast_vector())
+    check(torch.equal(to_int32_xla(vec.to(dev)).cpu(), to_int32_xla(vec)),
+          'to_int32_xla on the card differs from the CPU')
+    print('to_int32_xla: %d values equal on the card and the CPU'
+          % vec.numel())
+
+    mesh = Mesh([torch.device('cuda', 0)] * SHARDS, ('pools',))
+    nonfinite_rows_phase(dev, mesh)
+
+    rng = np.random.default_rng(18)
+    n = LIVE_POOLS
+    mctl = ctl.make_control_step(mesh)
+    state = ctl.control_init(n, device=dev)
+    ref = ctl.control_init(n, device='cpu')
+    sharded = ctl.shard_control_state(ctl.control_init(n, device=dev), mesh)
+    nan_inputs = bound_rows = 0
+    for k in range(NONFINITE_TICKS):
+        tag = 'non-finite control tick %d' % k
+        floats = dict(
+            samples=rng.uniform(0, 8, n), sojourns=rng.uniform(0, 600, n),
+            filtered=rng.uniform(0, 8, n),
+            target_delay=np.where(rng.random(n) < 0.33, np.inf,
+                                  rng.integers(50, 800, n)),
+            spares=rng.integers(0, 6, n), maximum=rng.integers(6, 20, n))
+        floats = {name: with_specials(rng, col, SPECIAL_SHARE)
+                  for name, col in floats.items()}
+        inp = ctl.control_inputs(
+            n, device=dev, active=rng.random(n) < 0.9,
+            reset=rng.random(n) < 0.02, now_ms=1000.0 * (k + 1), **floats)
+        got = ctl.control_step(state, inp)
+        want = ctl.control_step(ref, cpu_copy(inp))
+        check_control(tag, got, want, equal_nan=True)
+        got_sh = mctl(sharded, ctl.shard_control_inputs(inp, mesh))
+        check_control_sharded(tag + ' sharded', got_sh, got, equal_nan=True)
+        state, ref, sharded = got[0], want[0], got_sh[0]
+        nan_inputs += int(np.isnan(np.stack(list(floats.values())))
+                          .any(0).sum())
+        for name in ('plan_target', 'plan_spares', 'delta'):
+            col = got[1][name]
+            bound_rows += int(((col == 2 ** 31 - 1) | (col == -2 ** 31))
+                              .sum())
+    c_prof = profile_live._profile('control step, phase 18', [
+        lambda: ctl.control_step(state, inp)] * PROFILED_STEPS)
+    print('control: %d ticks at %d pools, 1%% of each float column special '
+          '(%d row-ticks with a NaN input, %d decisions at an int32 '
+          'bound), bit-identical to the CPU port and to the %d-shard step'
+          % (NONFINITE_TICKS, n, nan_inputs, bound_rows, SHARDS))
+
+    b = HEALTH_BACKENDS
+    cols = health_example_columns(b)
+    mhealth = hl.make_health_step(mesh)
+    h_state = hl.health_init(b, device=dev)
+    h_ref = hl.health_init(b, device='cpu')
+    h_sh = hl.shard_health_state(hl.health_init(b, device=dev), mesh)
+    edge = nan_ewma = 0
+    for k in range(NONFINITE_TICKS):
+        tag = 'non-finite health tick %d' % k
+        inp = hl.health_inputs(b, device=dev, **dict(
+            cols, lat_sum=with_specials(rng, cols['lat_sum'], SPECIAL_SHARE),
+            now_ms=np.float32(1000.0 * (k + 1))))
+        got = hl.health_step(h_state, inp)
+        want = hl.health_step(h_ref, cpu_copy(inp))
+        edge += check_health(tag, got, want, equal_nan=True)
+        got_sh = mhealth(h_sh, hl.shard_health_inputs(inp, mesh))
+        for part, g, w in zip(('state', 'verdicts', 'fleet'), got_sh, got):
+            check_same('%s sharded %s' % (tag, part), unshard(g), w,
+                       equal_nan=True)
+        h_state, h_ref, h_sh = got[0], want[0], got_sh[0]
+        nan_ewma += int(torch.isnan(got[1]['ewma_ms']).sum())
+    h_prof = profile_live._profile('health step, phase 18', [
+        lambda: hl.health_step(h_state, inp)] * PROFILED_STEPS)
+    print('health: %d ticks at %d backends, 1%% of lat_sum special (%d '
+          'backend-ticks with a NaN EWMA; %d on the score boundary), equal '
+          'to the CPU port and bit-identical to the %d-shard step; n_gray %d'
+          % (NONFINITE_TICKS, b, nan_ewma, edge, SHARDS,
+             int(got[2]['n_gray'])))
+    c_launches = c_prof['device_launches_per_tick']
+    h_launches = h_prof['device_launches_per_tick']
+    print('after the repair: control %.5f ms/step (phase 7), %.2f launches '
+          'and %.4f ms device busy per step; health %.5f ms/step (phase 8), '
+          '%.2f launches and %.4f ms device busy per step (profile_live'
+          "'s count); %s"
+          % (ctl_ms_step, c_launches, c_prof['device_busy_ms_per_tick'],
+             health_ms_step, h_launches, h_prof['device_busy_ms_per_tick'],
+             smi))
+    return {'raw_cast_card': raw_card, 'control_launches': c_launches,
+            'health_launches': h_launches,
+            'control_busy_ms': c_prof['device_busy_ms_per_tick'],
+            'health_busy_ms': h_prof['device_busy_ms_per_tick'],
+            'control_ms_per_step': ctl_ms_step,
+            'health_ms_per_step': health_ms_step,
+            'control_nan_input_row_ticks': nan_inputs,
+            'control_bound_decisions': bound_rows,
+            'health_nan_ewma_backend_ticks': nan_ewma,
+            'health_boundary_backend_ticks': edge}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
@@ -1226,6 +1529,8 @@ def main():
     bench_launches, bench_errs = bench_phase(kind, smi)
     errs.extend(bench_errs)
     fleet_launches = fleet_phase()
+    nonfinite = nonfinite_phase(dev, smi, ctl_step_ms, health_step_ms)
+    print('nonfinite ' + json.dumps(nonfinite))
 
     main_t = times[LIVE_POOLS]
     record = {

@@ -123,6 +123,9 @@ def health_score_near_boundary(ewma: np.ndarray,
     `ewma` moves by a rounding error: ``16 * log2(1 + ewma)`` within
     `eps` of a half-integer, where the rounding to the score changes.
     Two health steps whose EWMA or log2 round differently agree on
-    `score`, and so on the verdicts, exactly off these rows."""
-    x = SCORE_SCALE * np.log2(1.0 + np.asarray(ewma, np.float64))
-    return np.abs(x - np.floor(x) - 0.5) < eps
+    `score`, and so on the verdicts, exactly off these rows. A NaN or
+    infinite ``16 * log2(1 + ewma)`` (an EWMA that is NaN, infinite or
+    at most -1) is on no boundary: both casts saturate it alike."""
+    with np.errstate(invalid='ignore', divide='ignore'):
+        x = SCORE_SCALE * np.log2(1.0 + np.asarray(ewma, np.float64))
+        return np.abs(x - np.floor(x) - 0.5) < eps

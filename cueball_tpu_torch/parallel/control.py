@@ -20,7 +20,9 @@ Every cross-pool reduction that feeds a decision is an int32 sum or a
 max, so the decisions do not depend on summation order and agree bit
 for bit with the JAX package's. ``mean_load`` is a float sum and feeds
 gauges only. Integer columns stay int32: ``torch.sum`` of int32 returns
-int64 unless told otherwise, so every sum names its dtype.
+int64 unless told otherwise, so every sum names its dtype. The float
+plans cast to int32 by XLA's saturating rule (:func:`to_int32_xla`), so
+a NaN, infinite or out-of-range row decides as in the JAX package.
 
 Sharding over a :class:`~.mesh.Mesh` is derived from *regex partition
 rules* (:func:`match_partition_rules`): one rule table names which
@@ -40,6 +42,7 @@ import typing
 import numpy as np
 import torch
 
+from .._cast import to_int32_xla
 from .._device import resolve_device
 from ..codel import CODEL_TARGET_MAX, CODEL_TARGET_MIN
 from .mesh import Mesh, Reducer, shard_tree, tree_map_with_path
@@ -174,13 +177,13 @@ def _decide(state: ControlState, inp: ControlInputs,
     lp_min = torch.ceil(inp.filtered)
     plan = torch.where(raw < lp_min * 1.05, lp_min, raw)
     plan = torch.minimum(plan, inp.maximum)
-    plan_target = torch.round(plan).to(_I32)
+    plan_target = to_int32_xla(torch.round(plan))
     hot = pressure >= PRESSURE_HOT
     boost = torch.where(hot & over, 1.0, 0.0)
     shed = torch.where(quiet & (inp.filtered + 1.0 < inp.spares), 1.0, 0.0)
-    plan_spares = _clip(torch.round(inp.spares + boost - shed),
-                        t.new_tensor(0.0), inp.maximum).to(_I32)
-    delta = plan_target - torch.round(raw).to(_I32)
+    plan_spares = to_int32_xla(_clip(torch.round(inp.spares + boost - shed),
+                                     t.new_tensor(0.0), inp.maximum))
+    delta = plan_target - to_int32_xla(torch.round(raw))
 
     epoch = state.epoch + 1
     new_state = ControlState(targets=t, epoch=epoch, now_ms=inp.now_ms)

@@ -30,7 +30,9 @@ fused multiply-adds, and ``log2``/``exp2`` differ in the last bit. So
 rows whose ``16*log2(1+ewma)`` is off the rounding boundary
 (``convert.health_score_near_boundary``), and the floats agree to a
 tolerance. The histograms are built with ``scatter_add_`` of int32
-counts into 256 bins, not a [B, 256] one-hot.
+counts into 256 bins, not a [B, 256] one-hot. ``score`` casts to int32
+by XLA's saturating rule (:func:`to_int32_xla`): a NaN score float (an
+EWMA that is NaN or below -1 ms) bins at 0, as in the JAX package.
 
 Host glue lives here too: :class:`BackendTable` accumulates the
 per-backend columns from the host's backend sinks, and
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import host as default_host
+from .._cast import to_int32_xla
 from .._device import resolve_device, to_host_values
 from .control import match_partition_rules
 from .mesh import Mesh, Reducer, shard_tree, unshard
@@ -203,9 +206,9 @@ def _observe_local(state: HealthState, inp: HealthInputs):
         prev)
     hist = torch.where(inp.reset[:, None], 0.0, state.lat_hist)
     hist = hist * SKETCH_DECAY + inp.lat_buckets.to(_F32)
-    score = torch.clamp(
+    score = to_int32_xla(torch.clamp(
         torch.round(SCORE_SCALE * torch.log2(1.0 + ewma)),
-        0, SCORE_BINS - 1).to(_I32)
+        0, SCORE_BINS - 1))
     considered = inp.eligible & ~inp.reset & (ewma > 0.0)
     return ewma, hist, score, considered
 

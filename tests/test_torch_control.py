@@ -6,6 +6,13 @@ inputs, on the CPU. The decision columns (`codel_target`,
 `targets` agree bit for bit, since every reduction that feeds a
 decision is an int32 sum or a max; `mean_load`, a float sum, agrees to
 rtol 1e-5. The host-side actuation helpers are ported as they are.
+
+Where a decision's float is NaN, infinite or outside the int32 range,
+both packages cast it by XLA's saturating rule (NaN to 0, the rest
+clamped to the int32 bounds): the port through ``to_int32_xla``. The
+fixed non-finite rows and the frozen JAX numbers are ``chip_smoke.py``'s
+(phase 18 holds the card against them); here they are held against
+the JAX package itself.
 """
 
 import numpy as np
@@ -14,14 +21,23 @@ import pytest
 jax = pytest.importorskip('jax')
 torch = pytest.importorskip('torch')
 
+import chip_smoke  # noqa: E402
 from cueball_tpu.parallel import control as jctl  # noqa: E402
 from cueball_tpu_torch import convert  # noqa: E402
+from cueball_tpu_torch._cast import to_int32_xla  # noqa: E402
 from cueball_tpu_torch.parallel import control as tctl  # noqa: E402
-from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 
 CPU = 'cpu'
 SOAK_ROWS = 4096
 SOAK_STEPS = 4
+FORMS = ('plain', 'mesh')
+FUZZ_SEEDS = range(6)
+FUZZ_ROWS = 64
+FUZZ_SHARE = 0.2
+FLOAT_INPUTS = ('samples', 'sojourns', 'filtered', 'target_delay', 'spares',
+                'maximum')
+CASES = chip_smoke.NONFINITE_CONTROL_CASES
 
 
 def soak_inputs(rng, n, step):
@@ -156,3 +172,108 @@ def test_reduce_control_weights_by_pool_count():
     assert (out['applied'], out['rejected'], out['skipped']) == (3, 1, 3)
     empty = tctl.reduce_control([])
     assert empty['n_pools'] == 0.0 and empty['applied'] == 0
+
+
+# -- non-finite and out-of-range inputs -------------------------------------
+
+@pytest.mark.parametrize('value', chip_smoke.CAST_EDGES, ids=repr)
+def test_to_int32_xla_matches_jax_at_the_edges(value):
+    x = np.float32([value])
+    got = to_int32_xla(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax.numpy.asarray(x).astype(jax.numpy.int32)))
+
+
+def test_to_int32_xla_matches_jax_on_seeded_values():
+    x = chip_smoke.cast_vector()
+    want = np.asarray(jax.numpy.asarray(x).astype(jax.numpy.int32))
+    np.testing.assert_array_equal(to_int32_xla(torch.from_numpy(x)).numpy(),
+                                  want)
+    # Hundreds of them lie outside the int32 range, where a plain cast
+    # is undefined.
+    assert (~(np.abs(x) < 2.0 ** 31)).sum() > 300
+
+
+@pytest.fixture(scope='module')
+def jax_tick():
+    """One JAX control tick from ``control_init`` on numpy columns, as
+    numpy, memoized by key for the module."""
+    memo = {}
+
+    def run(key, cols):
+        if key not in memo:
+            n = len(cols['active'])
+            memo[key] = jax.tree.map(np.asarray, jctl.control_step(
+                jctl.control_init(n), jctl.control_inputs(n, **cols)))
+        return memo[key]
+    return run
+
+
+def port_tick(form, cols):
+    """One port control tick from ``control_init`` on the CPU, plain or
+    over a 2-shard mesh (unsharded after)."""
+    n = len(cols['active'])
+    state = tctl.control_init(n, device=CPU)
+    inp = tctl.control_inputs(n, device=CPU, **cols)
+    if form == 'plain':
+        return tctl.control_step(state, inp)
+    mesh = Mesh([CPU] * 2, ('pools',))
+    out = tctl.make_control_step(mesh)(tctl.shard_control_state(state, mesh),
+                                       tctl.shard_control_inputs(inp, mesh))
+    return tuple(unshard(t) for t in out)
+
+
+def assert_tick_matches(got, want, tag):
+    """Decisions, carried targets and the fleet counts bit for bit (NaN
+    equal to NaN), ``mean_load`` to rtol 1e-5."""
+    (ts, td, tf), (js, jd, jf) = got, want
+    for name, w in jd.items():
+        assert td[name].numpy().dtype == w.dtype, (tag, name)
+        np.testing.assert_array_equal(td[name].numpy(), w,
+                                      err_msg='%s %s' % (tag, name))
+    np.testing.assert_array_equal(ts.targets.numpy(), js.targets)
+    for name in ('n_pools', 'pressure', 'max_sojourn'):
+        np.testing.assert_array_equal(tf[name].numpy(), jf[name],
+                                      err_msg='%s %s' % (tag, name))
+    np.testing.assert_allclose(tf['mean_load'].numpy(), jf['mean_load'],
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize('form', FORMS)
+@pytest.mark.parametrize('name,case', CASES, ids=[n for n, _ in CASES])
+def test_nonfinite_row_decisions_match_jax(name, case, form, jax_tick):
+    """Each non-finite or out-of-range row on row 0 of an ordinary
+    16-pool fleet: a cast that does not saturate changes `plan_target`,
+    `plan_spares` or `delta` there."""
+    cols = chip_smoke.nonfinite_control_columns([case])
+    assert_tick_matches(port_tick(form, cols), jax_tick(name, cols), name)
+
+
+def test_frozen_nonfinite_decisions_are_the_jax_packages(jax_tick):
+    """All five cases in one fleet: the JAX package's decisions are the
+    numbers chip_smoke.py holds the card against, and the port's too."""
+    cols = chip_smoke.nonfinite_control_columns([case for _, case in CASES])
+    want = jax_tick('all', cols)
+    for name, frozen in chip_smoke.JAX_NONFINITE_DECISIONS.items():
+        assert want[1][name].tolist() == frozen, name
+    assert_tick_matches(port_tick('plain', cols), want, 'all')
+
+
+def fuzz_columns(seed):
+    """The soak's columns over FUZZ_ROWS pools with FUZZ_SHARE of each
+    float column replaced by NaN, +-inf, -5, +-4e9, 0 or 1e-30."""
+    rng = np.random.default_rng(seed)
+    cols = soak_inputs(rng, FUZZ_ROWS, 0)
+    for name in FLOAT_INPUTS:
+        cols[name] = chip_smoke.with_specials(rng, cols[name], FUZZ_SHARE)
+    return cols
+
+
+@pytest.mark.parametrize('form', FORMS)
+@pytest.mark.parametrize('seed', FUZZ_SEEDS)
+def test_nonfinite_fuzz_matches_jax(seed, form, jax_tick):
+    cols = fuzz_columns(seed)
+    assert np.isnan(np.stack([cols[k] for k in FLOAT_INPUTS])).any()
+    assert_tick_matches(port_tick(form, cols),
+                        jax_tick('fuzz %d' % seed, cols), 'seed %d' % seed)

@@ -2,7 +2,9 @@
 its build from four threads at once), the control and health steps
 against their CPU runs, the live sampler through the kernel, the mesh
 forms over shards that share the card against the unsharded steps,
-the fleet passes over shard loop threads, and the port bench's stages.
+the fleet passes over shard loop threads, the port bench's stages, and
+the saturating float-to-int32 cast on the non-finite rows whose JAX
+numbers ``chip_smoke.py`` freezes.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
@@ -17,7 +19,10 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+import chip_smoke  # noqa: E402
 from cueball_tpu_torch import bench, convert  # noqa: E402
+from cueball_tpu_torch._cast import to_int32_xla  # noqa: E402
+from cueball_tpu_torch._device import to_host_values  # noqa: E402
 from cueball_tpu_torch.kernels import build  # noqa: E402
 from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.ops import fir  # noqa: E402
@@ -274,3 +279,43 @@ def test_bench_stages_measure_the_kernel(card):
     assert rec['device_name'] == torch.cuda.get_device_name(0)
     assert rec['power_limit'].endswith(' W')
     assert rec['code_hash'] == bench.code_hash()
+
+
+def test_to_int32_xla_on_card_matches_cpu(card):
+    x = torch.from_numpy(chip_smoke.cast_vector())
+    got = to_int32_xla(x.to(card))
+    assert got.device.type == 'cuda' and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), to_int32_xla(x))
+
+
+def test_nonfinite_control_rows_on_card(card):
+    """The five non-finite cases in one fleet: the card's decisions are
+    the JAX package's frozen numbers and the CPU port's."""
+    n = chip_smoke.NONFINITE_POOLS
+    inp = ctl.control_inputs(n, device=card,
+                             **chip_smoke.nonfinite_control_columns(
+                                 [case for _, case in
+                                  chip_smoke.NONFINITE_CONTROL_CASES]))
+    _, dec, _ = ctl.control_step(ctl.control_init(n, device=card), inp)
+    _, r_dec, _ = ctl.control_step(ctl.control_init(n, device='cpu'),
+                                   _cpu(inp))
+    for name, frozen in chip_smoke.JAX_NONFINITE_DECISIONS.items():
+        assert dec[name].tolist() == frozen == r_dec[name].tolist(), name
+
+
+@pytest.mark.parametrize('name,lat_sum', chip_smoke.NONFINITE_LAT_SUMS,
+                         ids=[n for n, _ in chip_smoke.NONFINITE_LAT_SUMS])
+def test_nonfinite_health_rows_on_card(card, name, lat_sum):
+    """A NaN score float bins at 0 on the card as in the JAX package."""
+    n = chip_smoke.NONFINITE_BACKENDS
+    cols = chip_smoke.nonfinite_health_columns(lat_sum)
+    _, v, f = hl.health_step(hl.health_init(n, device=card),
+                             hl.health_inputs(n, device=card, **cols))
+    _, rv, _ = hl.health_step(hl.health_init(n, device='cpu'),
+                              hl.health_inputs(n, device='cpu', **cols))
+    frozen = chip_smoke.JAX_NONFINITE_SCORES[name]
+    assert v['score'].tolist() == frozen == rv['score'].tolist()
+    assert not v['gray'].any()
+    fleet = to_host_values({k: f[k]
+                            for k in chip_smoke.JAX_NONFINITE_HEALTH_FLEET})
+    assert fleet == chip_smoke.JAX_NONFINITE_HEALTH_FLEET

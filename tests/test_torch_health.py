@@ -14,6 +14,11 @@ The law tests are those of tests/test_health.py, asserted on both
 packages at once. The host glue (BackendTable, HealthMonitor,
 reduce_health) runs the port over the JAX package's own host state
 through the ``host`` seam.
+
+A NaN or out-of-range score float casts by XLA's saturating rule in
+both packages (NaN to 0): the non-finite ``lat_sum`` rows and their
+frozen JAX numbers are ``chip_smoke.py``'s, held here against the JAX
+package itself.
 """
 
 
@@ -32,8 +37,9 @@ from cueball_tpu.parallel import health as JH  # noqa: E402
 from cueball_tpu_torch import convert, host  # noqa: E402
 from cueball_tpu_torch._device import to_host_values  # noqa: E402
 from cueball_tpu_torch.parallel import health as TH  # noqa: E402
-from cueball_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from conftest import run_async  # noqa: E402
 
 CPU = 'cpu'
@@ -48,6 +54,9 @@ EXACT_FLEET = ('n_backends', 'ops', 'errors', 'shed', 'alert_page',
 SCORE_FLEET = ('median_score', 'mad_score', 'n_gray')
 FLOAT_FLEET = ('claim_p99_ms', 'err_rate', 'over_frac', 'burn_fast',
                'burn_slow')
+FORMS = ('plain', 'mesh')
+FUZZ_SEEDS = range(6)
+FUZZ_ROWS, FUZZ_TICKS, FUZZ_SHARE = 64, 4, 0.2
 
 
 def jax_host():
@@ -443,6 +452,21 @@ def test_monitor_ticks_grows_and_publishes_gauges():
     assert mon.hm_table not in mod_trace._BACKEND_SINKS
 
 
+def assert_records_match(trec, jrec):
+    """A port monitor's published record equals the JAX monitor's:
+    verdicts exactly, floats to rtol 1e-5."""
+    assert trec['epoch'] == jrec['epoch']
+    assert trec['gray'] == jrec['gray']
+    assert sorted(trec['backends']) == sorted(jrec['backends'])
+    for key, jb in jrec['backends'].items():
+        tb = trec['backends'][key]
+        assert (tb['gray'], tb['score']) == (jb['gray'], jb['score'])
+        assert tb['ewma_ms'] == pytest.approx(jb['ewma_ms'], rel=1e-5)
+    for key, v in jrec['fleet'].items():
+        assert type(trec['fleet'][key]) is type(v), key
+        assert trec['fleet'][key] == pytest.approx(v, rel=1e-5), key
+
+
 def test_monitor_records_match_jax_monitor():
     """A JAX HealthMonitor and a port one, fed the same claims through
     the JAX trace layer's sinks, publish equal records tick by tick."""
@@ -462,17 +486,7 @@ def test_monitor_records_match_jax_monitor():
                         sink.observe(key, ms if ok else None, ms + 1.0, ok)
             now = 1000.0 * (t + 1)
             jrec, trec = jmon.tick(now_ms=now), tmon.tick(now_ms=now)
-            assert trec['epoch'] == jrec['epoch']
-            assert trec['gray'] == jrec['gray']
-            assert sorted(trec['backends']) == sorted(jrec['backends'])
-            for key, jb in jrec['backends'].items():
-                tb = trec['backends'][key]
-                assert (tb['gray'], tb['score']) == (jb['gray'], jb['score'])
-                assert tb['ewma_ms'] == pytest.approx(jb['ewma_ms'],
-                                                      rel=1e-5)
-            for key, v in jrec['fleet'].items():
-                assert type(trec['fleet'][key]) is type(v), key
-                assert trec['fleet'][key] == pytest.approx(v, rel=1e-5), key
+            assert_records_match(trec, jrec)
         assert jrec['gray'] == ['be-rec-3']
     finally:
         jmon.stop()
@@ -539,3 +553,141 @@ def test_claim_to_verdict_end_to_end():
             mon.stop()
             mod_trace.disable_tracing()
     run_async(t())
+
+
+# -- non-finite and out-of-range inputs -------------------------------------
+
+def port_ticks(form, n, ticks):
+    """The port's health step from ``health_init(n)`` on the CPU over
+    each tick's numpy columns, plain or over a 2-shard mesh; yields each
+    tick's (state, verdicts as numpy, fleet as host values)."""
+    if form == 'plain':
+        step, state = TH.health_step, TH.health_init(n, device=CPU)
+    else:
+        mesh = Mesh([CPU] * 2, ('pools',))
+        step = TH.make_health_step(mesh)
+        state = TH.shard_health_state(TH.health_init(n, device=CPU), mesh)
+    for cols in ticks:
+        inp = TH.health_inputs(n, device=CPU, **cols)
+        if form == 'plain':
+            state, verdicts, fleet = step(state, inp)
+            flat = state
+        else:
+            state, verdicts, fleet = step(
+                state, TH.shard_health_inputs(inp, mesh))
+            flat, verdicts, fleet = unshard(state), unshard(verdicts), fleet[0]
+        yield (flat, {k: v.numpy() for k, v in verdicts.items()},
+               to_host_values(fleet))
+
+
+@pytest.fixture(scope='module')
+def jax_ticks():
+    """The JAX health step's ticks from ``health_init`` over a list of
+    numpy columns, as numpy, memoized by key for the module."""
+    memo = {}
+
+    def run(key, ticks):
+        if key not in memo:
+            state = JH.health_init(len(ticks[0]['active']))
+            out = []
+            for cols in ticks:
+                state, verdicts, fleet = JH.health_step(
+                    state, JH.health_inputs(len(cols['active']), **cols))
+                out.append(jax.tree.map(np.asarray, (state, verdicts, fleet)))
+            memo[key] = out
+        return memo[key]
+    return run
+
+
+@pytest.mark.parametrize('form', FORMS)
+@pytest.mark.parametrize('name,lat_sum', chip_smoke.NONFINITE_LAT_SUMS,
+                         ids=[n for n, _ in chip_smoke.NONFINITE_LAT_SUMS])
+def test_nonfinite_lat_sum_rows_match_jax(name, lat_sum, form, jax_ticks):
+    """A mean below -1 ms, NaN or +inf makes ``log2(1 + ewma)`` NaN or
+    infinite: the score saturates as the JAX package's does (NaN to 0),
+    and the step goes on. The JAX numbers are chip_smoke.py's."""
+    ticks = [chip_smoke.nonfinite_health_columns(lat_sum)]
+    (_, jv, jf), = jax_ticks(name, ticks)
+    (_, tv, tf), = port_ticks(form, len(lat_sum), ticks)
+    assert check_against_jax(tv, tf, jv, jf, name) == 0
+    assert jv['score'].tolist() == chip_smoke.JAX_NONFINITE_SCORES[name]
+    np.testing.assert_array_equal(tv['score'], jv['score'])
+    np.testing.assert_array_equal(tv['gray'], jv['gray'])
+    for key, frozen in chip_smoke.JAX_NONFINITE_HEALTH_FLEET.items():
+        assert tf[key] == jf[key].item() == frozen, key
+
+
+def fuzz_ticks(seed):
+    """FUZZ_TICKS ticks of seeded traffic over FUZZ_ROWS backends with
+    FUZZ_SHARE of every ``lat_sum`` replaced by NaN, +-inf, -5, +-4e9, 0
+    or 1e-30."""
+    rng = np.random.default_rng(seed)
+    n, ticks = FUZZ_ROWS, []
+    for t in range(FUZZ_TICKS):
+        lat = rng.gamma(2.0, 4.0, n).astype(np.float32)
+        cnt = rng.integers(0, 20, n).astype(np.int32)
+        buckets = np.zeros((n, JH.LAT_BINS), np.int32)
+        bk = np.minimum((np.log2(1.0 + lat) * 4).astype(np.int32),
+                        JH.LAT_BINS - 1)
+        buckets[np.arange(n), bk] = cnt
+        act = rng.random(n) < 0.9
+        elig = act.copy()
+        elig[0] = False
+        ticks.append(dict(
+            lat_sum=chip_smoke.with_specials(rng, lat * cnt, FUZZ_SHARE),
+            lat_count=cnt, lat_buckets=buckets, claim_buckets=buckets,
+            errors=(rng.random(n) < 0.05).astype(np.int32),
+            shed=(rng.random(n) < 0.02).astype(np.int32), active=act,
+            eligible=elig, reset=rng.random(n) < 0.05,
+            now_ms=np.float32(200.0 * (t + 1))))
+    return ticks
+
+
+@pytest.mark.parametrize('form', FORMS)
+@pytest.mark.parametrize('seed', FUZZ_SEEDS)
+def test_nonfinite_fuzz_matches_jax(seed, form, jax_ticks):
+    """Four chained ticks: verdicts, the fleet row and the carried
+    state agree with the JAX package's on every tick."""
+    ticks = fuzz_ticks(seed)
+    want = jax_ticks('fuzz %d' % seed, ticks)
+    nan_ewma = 0
+    for t, ((ts, tv, tf), (js, jv, jf)) in enumerate(
+            zip(port_ticks(form, FUZZ_ROWS, ticks), want)):
+        tag = 'seed %d tick %d' % (seed, t)
+        assert check_against_jax(tv, tf, jv, jf, tag) == 0
+        for name in ('gray_streak', 'ok_streak', 'gray', 'epoch'):
+            np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                          getattr(js, name), err_msg=tag)
+        for name in ('ewma_ms', 'lat_hist'):
+            np.testing.assert_allclose(getattr(ts, name).numpy(),
+                                       getattr(js, name), rtol=1e-5,
+                                       atol=1e-6, err_msg=tag)
+        nan_ewma += int(np.isnan(jv['ewma_ms']).sum())
+    assert nan_ewma > 0
+
+
+def test_monitor_with_negative_service_time_matches_jax():
+    """A backend whose claims report a service time of -5 ms (a clock
+    that stepped back) has a NaN score float: the port's monitor bins
+    it as the JAX one does and judges the rest of the fleet."""
+    host = jax_host()
+    jmon = JH.HealthMonitor().start()
+    tmon = TH.HealthMonitor({'host': host, 'device': CPU}).start()
+    try:
+        for t in range(2):
+            for i in range(48):
+                key = 'be-neg-%d' % (i % 8)
+                ms = -5.0 if key == 'be-neg-3' else 2.0 + i % 8
+                for sink in mod_trace._BACKEND_SINKS:
+                    if sink in (jmon.hm_table, tmon.hm_table):
+                        sink.observe(key, ms, abs(ms) + 1.0, True)
+            now = 1000.0 * (t + 1)
+            jrec, trec = jmon.tick(now_ms=now), tmon.tick(now_ms=now)
+            assert_records_match(trec, jrec)
+        assert trec['epoch'] == 2
+        assert 'be-neg-3' not in trec['backends']
+        assert sorted(trec['backends']) == ['be-neg-%d' % i
+                                            for i in (0, 1, 2, 4, 5, 6, 7)]
+    finally:
+        jmon.stop()
+        tmon.stop()

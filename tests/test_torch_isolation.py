@@ -136,7 +136,7 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / 'cueball_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     names = {str(f.relative_to(ROOT)) for f in files}
-    for module in ('codel', 'debug', 'errors', 'events', 'host',
+    for module in ('_cast', 'codel', 'debug', 'errors', 'events', 'host',
                    'http_server', 'monitor', 'parallel/control',
                    'parallel/health', 'parallel/mesh', 'parallel/sampler',
                    'shard/__init__', 'shard/fleet', 'examples/__init__',
