@@ -95,12 +95,12 @@ Phases, each of which exits non-zero on failure:
     launches are not counted as the bench's;
 17. inference fleet (main path): the script
     ``examples_torch/inference_fleet_client.py`` for 50 requests over
-    two HTTP servers it serves in-process, in a process of its own (its
-    pools are the JAX package's framework-neutral pool layer, which this
-    script does not import), its port sampler on the card and a twin on
-    the CPU fed the same rows at the same instants: every request
-    served, the fleet aggregates of every tick within rtol 1e-5 / atol
-    1e-5 of the twin's, one FIR launch per tick;
+    two HTTP servers it serves in-process, in a process of its own where
+    ``cueball_tpu``, ``jax`` and ``jaxlib`` are unimportable (its pools
+    are the port's own), its port sampler on the card and a twin on the
+    CPU fed the same rows at the same instants: every request served,
+    the fleet aggregates of every tick within rtol 1e-5 / atol 1e-5 of
+    the twin's, one FIR launch per tick;
 18. non-finite inputs: the card's raw ``.to(torch.int32)`` of NaN, +-inf,
     +-4e9 and 2.5 printed, and ``to_int32_xla`` (XLA's saturating cast,
     which the control and health steps use) equal on the card and the
@@ -115,7 +115,21 @@ Phases, each of which exits non-zero on failure:
     the 4-shard steps bit for bit against the unsharded ones; last,
     the launches and device busy time per control and health step, as
     ``profile_live`` counts them, beside phases 7 and 8's times and the
-    nvidia-smi line.
+    nvidia-smi line;
+19. pool fleet (main path): ``cueball_tpu_torch.examples.pool_fleet``:
+    64 of the port's ``ConnectionPool``s over 8 HTTP servers served
+    in-process, each with a ``StaticIpResolver`` over 4 of them, spares
+    2, maximum 4, both fleet actuations on, the claim tracer feeding
+    the health table; 2,000 claim / GET / release cycles at a
+    concurrency of 32 while one ``FleetSampler`` on the card (control
+    and health on, 32 taps) ticks every 20 claims, and a CPU twin over
+    shadows of the same pools ticks at the same instants: every claim
+    served, every tick's record held against the twin's as in phase 9
+    (inputs exactly, the fleet aggregates to rtol 1e-5 / atol 1e-5),
+    one FIR launch per tick, and the card sampler's advisories and
+    decisions (with its epoch) found on the pools; ``ulimit -n`` checked
+    against the sockets the phase opens. Then the same fleet without
+    the twin for its claims per second and ms per tick.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -126,6 +140,7 @@ import asyncio
 import json
 import logging
 import os
+import resource
 import shutil
 import signal
 import subprocess
@@ -146,7 +161,7 @@ from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
                                      example_inputs,
                                      health_example_columns, tick_inputs)
 from cueball_tpu_torch.examples import (fleet_mesh_sampler,
-                                        inference_fleet_client,
+                                        inference_fleet_client, pool_fleet,
                                         telemetry_replay)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
@@ -178,6 +193,10 @@ ROUTER_PASSES = (('sample', 20), ('control', 20), ('health', 10))
 BENCH_KERNEL_STAGES = ('step_live', 'step_kernel', 'scan') + tuple(
     'tick_cost_%d' % n for n in bench.TELEM_TICK_SIZES)
 FLEET_REQUESTS = 50
+#: Sockets phase 19 may hold beyond its pools' (client and server side
+#: of every connection): the process's own files, the card's, the
+#: servers' listeners.
+FD_HEADROOM = 256
 FLEET_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             'examples_torch', 'inference_fleet_client.py')
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
@@ -433,12 +452,14 @@ def check_health(tag, got, want, equal_nan=False):
     return n_edge
 
 
-def check_sampler_records(tag, got, want):
+def check_sampler_records(tag, got, want, counts=True):
     """Hold the card sampler's tick record against the CPU sampler's, as
     the tests do: inputs equal, floats to RTOL/ATOL, `drop` exactly,
     `target`, `clamped` and the plans exactly off the target boundary,
-    the health record's verdicts exactly. Returns (rows on the target
-    boundary, drops this tick)."""
+    the health record's verdicts exactly. Without ``counts``, the
+    control record's applied, rejected and skipped counts are not held
+    (a twin over shadow pools applies nothing). Returns (rows on the
+    target boundary, drops this tick)."""
     gp, wp = got['pools'], want['pools']
     check(gp.tp_rows == wp.tp_rows, '%s: rows differ' % tag)
     for name, col in wp.tp_cols.items():
@@ -458,7 +479,8 @@ def check_sampler_records(tag, got, want):
         check(abs(got['fleet'][name] - v) <= ATOL + RTOL * abs(v),
               '%s: fleet %s %r vs %r' % (tag, name, got['fleet'][name], v))
     gc, wc = got['control'], want['control']
-    for name in ('applied', 'rejected', 'skipped', 'epoch', 'step_ms'):
+    names = ('applied', 'rejected', 'skipped') if counts else ()
+    for name in names + ('epoch', 'step_ms'):
         check(gc[name] == wc[name], '%s: control %s' % (tag, name))
     for name, v in wc['decisions'].items():
         mask = off if v.ndim and name != 'codel_target' else ...
@@ -1084,10 +1106,16 @@ def bench_phase(kind, smi):
 def fleet_phase():
     """Phase 17. Returns the example's FIR launches."""
     phase('17 inference fleet (main path)')
-    r = subprocess.run(
-        [sys.executable, FLEET_SCRIPT, '--requests', str(FLEET_REQUESTS),
-         '--twin-device', 'cpu'], capture_output=True, text=True,
-        timeout=300)
+    # The JAX package and JAX are made unimportable before anything is
+    # imported: the script runs on the port's own pool layer.
+    code = ("import runpy, sys\n"
+            "for name in ('cueball_tpu', 'jax', 'jaxlib'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = [%r, '--requests', %r, '--twin-device', 'cpu']\n"
+            "runpy.run_path(%r, run_name='__main__')\n"
+            % (FLEET_SCRIPT, str(FLEET_REQUESTS), FLEET_SCRIPT))
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=300)
     print(r.stdout.rstrip())
     check(r.returncode == 0, 'inference fleet: exit %d: %s' % (
         r.returncode, r.stderr.strip()[-2000:]))
@@ -1107,6 +1135,72 @@ def fleet_phase():
           '(max_abs_err %.3e), %d FIR launches'
           % (res['ok'], ticks, res['max_abs_err'][0], res['fir_launches']))
     return res['fir_launches']
+
+
+def pool_fleet_phase(smi):
+    """Phase 19. Returns the FIR launches and the phase's numbers."""
+    phase('19 pool fleet (main path)')
+    need = 2 * pool_fleet.POOLS * pool_fleet.MAXIMUM + FD_HEADROOM
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    print('ulimit -n: soft %d, hard %d; the phase needs %d' % (soft, hard,
+                                                                need))
+    if soft < need and (hard == resource.RLIM_INFINITY or hard >= need):
+        resource.setrlimit(resource.RLIMIT_NOFILE, (need, hard))
+        soft = need
+    check(soft >= need, 'pool fleet: ulimit -n %d is below the %d sockets '
+          'the phase needs' % (soft, need))
+    fir.fir_apply_cuda.launches = 0
+    res = asyncio.run(pool_fleet.run())
+    launches = fir.fir_apply_cuda.launches
+    claims, ticks = pool_fleet.CLAIMS, res['ticks']
+    check(res['device'].startswith('cuda'),
+          'pool fleet: sampler on %s' % res['device'])
+    check(res['served'] == claims and not res['failed'],
+          'pool fleet: %d of %d claims served; %s'
+          % (res['served'], claims, res['failed'][:3]))
+    check(ticks == claims // pool_fleet.TICK_EVERY + 2,
+          'pool fleet: %d ticks' % ticks)
+    check(len(res['twin_records']) == ticks, 'pool fleet: twin ticks')
+    edge = 0
+    for k, (got, want) in enumerate(zip(res['records'],
+                                        res['twin_records'])):
+        check(got['fleet']['n_pools'] == pool_fleet.POOLS,
+              'pool fleet tick %d: %r pools sampled'
+              % (k, got['fleet']['n_pools']))
+        edge += check_sampler_records('pool fleet tick %d' % k, got, want,
+                                      counts=False)[0]
+    check(launches == res['fir_launches'] == ticks,
+          'pool fleet: %d FIR launches in %d ticks' % (launches, ticks))
+    reached = res['reached']
+    check(reached['applied'] > 0 and reached['decisions'] > 0,
+          'pool fleet: no control decision reached a pool: %r' % reached)
+    check(reached['advisories'] > 0,
+          'pool fleet: no advisory reached a pool: %r' % reached)
+    print('pool fleet: %d claims over %d pools served; %d ticks agree with '
+          'the CPU twin (%d row-ticks on the target boundary); %d FIR '
+          'launches; %d decisions applied, %d pools hold epoch %d, %d the '
+          'last advisory' % (res['served'], pool_fleet.POOLS, ticks, edge,
+                             launches, reached['applied'],
+                             reached['decisions'], reached['epoch'],
+                             reached['advisories']))
+    alone = asyncio.run(pool_fleet.run(twin_device=None))
+    check(alone['served'] == claims and not alone['failed'],
+          'pool fleet without twin: %d served' % alone['served'])
+    check(alone['fir_launches'] == alone['ticks'],
+          'pool fleet without twin: %d launches in %d ticks'
+          % (alone['fir_launches'], alone['ticks']))
+    out = {'pools': pool_fleet.POOLS, 'claims': claims,
+           'concurrency': pool_fleet.CONCURRENCY, 'ticks': ticks,
+           'fir_launches': launches,
+           'claims_per_s_with_twin': res['claims_per_s'],
+           'claims_per_s': alone['claims_per_s'],
+           'ms_per_tick': alone['ms_per_tick'],
+           'ms_per_tick_with_twin': res['ms_per_tick'],
+           'wall_s': alone['wall_s'], 'nvidia_smi': smi}
+    print('pool fleet: %.1f claims/s, %.4f ms per card sampler tick (host '
+          'clock, ends in a device sync), without the twin; %s'
+          % (alone['claims_per_s'], alone['ms_per_tick'], smi))
+    return launches, out
 
 
 def check_control_sharded(tag, got, want, equal_nan=False):
@@ -1531,6 +1625,8 @@ def main():
     fleet_launches = fleet_phase()
     nonfinite = nonfinite_phase(dev, smi, ctl_step_ms, health_step_ms)
     print('nonfinite ' + json.dumps(nonfinite))
+    pool_launches, pooled = pool_fleet_phase(smi)
+    print('pool_fleet ' + json.dumps(pooled))
 
     main_t = times[LIVE_POOLS]
     record = {
@@ -1541,13 +1637,14 @@ def main():
                      + meshed['sharded_live_launches']
                      + meshed['mesh_sampler_launches']
                      + routed['launches'] + example_launches
-                     + bench_launches + fleet_launches),
+                     + bench_launches + fleet_launches + pool_launches),
         'launches_by_path': {
             'live_step': launches, 'sampler': sampler_launches,
             'sharded_live': meshed['sharded_live_launches'],
             'mesh_sampler': meshed['mesh_sampler_launches'],
             'router': routed['launches'], 'examples': example_launches,
-            'bench': bench_launches, 'inference_fleet': fleet_launches},
+            'bench': bench_launches, 'inference_fleet': fleet_launches,
+            'pool_fleet': pool_launches},
         'max_abs_err': max(max(e[0] for e in errs), routed['max_abs_err']),
         'max_rel_err': max(max(e[1] for e in errs), routed['max_rel_err']),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

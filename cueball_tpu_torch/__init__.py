@@ -1,21 +1,45 @@
-"""cueball_tpu_torch: the fleet runtime in PyTorch, on CUDA.
+"""cueball_tpu_torch: the fleet runtime in PyTorch, on CUDA, with its own
+connection-pool layer.
 
 The counterpart of the JAX package ``cueball_tpu``'s batched control
 laws (``ops``) and its live fleet runtime (``parallel``: the telemetry,
 control and health steps and the ``FleetSampler`` that drives them, on
 one device or split over a ``Mesh`` of devices in one process),
 written in PyTorch, with the FIR matvec as a hand-written CUDA kernel
-for Hopper (``csrc/fir.cu``). It imports nothing of ``cueball_tpu``:
-the host state the sampler reaches (clock, backend registry, pool
-monitor) has its own copy here (``host``, ``monitor``, ``events``).
+for Hopper (``csrc/fir.cu``); and a copy of that package's asyncio pool
+layer (``ConnectionPool``, ``StaticIpResolver``, ``HttpAgent``, the
+slot and resolver FSMs, the claim tracer and the wire ledger), whose
+pools the sampler samples and whose pools act on the control step's
+decisions. It imports nothing of ``cueball_tpu``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card the default raises. Importing the
 package builds no kernel: ``kernels.build`` runs nvcc on first use.
 ``cueball_tpu_torch.entry`` holds the entry point
-``entry(device=None)`` and its seeded inputs.
+``entry(device=None)`` and its seeded inputs. DNS resolution and
+``ConnectionSet`` are not ported yet: a domain name raises
+``CueBallError``.
 """
 
+from .agent import HttpAgent, HttpsAgent
+from .codel import ControlledDelay
+from .cqueue import Queue
+from .errors import (ClaimHandleMisusedError, ClaimTimeoutError,
+                     ConnectionClosedError, ConnectionError,
+                     ConnectionTimeoutError, NoBackendsError,
+                     PoolFailedError, PoolStoppingError,
+                     TransportNotAvailableError)
+from .events import EventEmitter
+from .fsm import FSM
+from .monitor import pool_monitor
+from .pool import ConnectionPool
+from .resolver import (ResolverFSM, StaticIpResolver,
+                       config_for_ip_or_domain, resolver_for_ip_or_domain)
+from .trace import disable_tracing, enable_tracing, trace_ring, tracing_enabled
+from .transport import (AsyncioTransport, FabricTransport, NativeTransport,
+                        Transport, get_transport, register_transport)
+from .utils import (current_millis, enable_stack_traces, plan_rebalance,
+                    stack_traces_enabled)
 from .ops import (CodelState, backoff_schedule, codel_scan, fir_apply,
                   fir_apply_cuda, fir_smooth, gen_taps, spread_delays)
 from .parallel import (FleetInputs, FleetSampler, FleetState, fleet_init,
@@ -23,11 +47,33 @@ from .parallel import (FleetInputs, FleetSampler, FleetState, fleet_init,
                        fleet_step_cuda, fleet_step_plain, make_live_step,
                        rebase_state)
 
+# The JAX package's camelCase aliases of the reference's export names.
+resolverForIpOrDomain = resolver_for_ip_or_domain
+configForIpOrDomain = config_for_ip_or_domain
+poolMonitor = pool_monitor
+enableStackTraces = enable_stack_traces
+
 __all__ = ['CodelState', 'FleetInputs', 'FleetSampler', 'FleetState',
            'backoff_schedule', 'codel_scan', 'fir_apply', 'fir_apply_cuda',
            'fir_smooth', 'fleet_init', 'fleet_inputs', 'fleet_scan',
            'fleet_step', 'fleet_step_cuda', 'fleet_step_plain', 'gen_taps',
-           'make_live_step', 'rebase_state', 'spread_delays']
+           'make_live_step', 'rebase_state', 'spread_delays',
+           'ConnectionPool', 'StaticIpResolver', 'ResolverFSM',
+           'resolver_for_ip_or_domain', 'config_for_ip_or_domain',
+           'resolverForIpOrDomain', 'configForIpOrDomain',
+           'HttpAgent', 'HttpsAgent',
+           'pool_monitor', 'poolMonitor', 'enableStackTraces',
+           'enable_tracing', 'disable_tracing', 'tracing_enabled',
+           'trace_ring',
+           'Transport', 'AsyncioTransport', 'FabricTransport',
+           'NativeTransport', 'get_transport', 'register_transport',
+           'EventEmitter', 'FSM', 'Queue', 'ControlledDelay',
+           'enable_stack_traces', 'stack_traces_enabled', 'current_millis',
+           'plan_rebalance',
+           'ClaimHandleMisusedError', 'ClaimTimeoutError', 'NoBackendsError',
+           'PoolFailedError', 'PoolStoppingError', 'ConnectionError',
+           'ConnectionTimeoutError', 'ConnectionClosedError',
+           'TransportNotAvailableError']
 
 
 def api_modules() -> list:

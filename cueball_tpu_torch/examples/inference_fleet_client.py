@@ -10,13 +10,13 @@ saturates. A ``FleetSampler`` samples every pool of the process each
 tick and publishes the fleet's aggregates; here it is the port's, on
 the card, ticked every ``TICK_EVERY`` requests and once after the last.
 
-The pools are the JAX package's: its HTTP agent, static resolver and
-pool monitor are a framework-neutral asyncio stack that the port does
-not copy. This module imports none of it. The caller hands the layer
-over as :func:`pool_layer` of those modules; the sampler reads the
-layer's clock, backend registry and loop lag through
-``host.seam_over``. The script ``examples_torch/inference_fleet_client.py``
-builds that layer and runs :func:`main`:
+The pools are the port's own: its HTTP agent, static resolver and pool
+monitor, with the sampler reading the layer's clock, backend registry
+and loop lag through ``host.seam_over``. :func:`pool_layer` builds that
+layer; given the JAX package's modules instead, it builds the same
+layer over that package's pools (this module imports none of them), so
+a test can run the example on either. The script
+``examples_torch/inference_fleet_client.py`` runs :func:`main`:
 
     python examples_torch/inference_fleet_client.py [--requests 20] \\
         [--device cpu] [--twin-device cpu] [IP:PORT ...]
@@ -36,7 +36,14 @@ import types
 
 import numpy as np
 
+from .. import agent as mod_agent
 from .. import host
+from .. import monitor as mod_monitor
+from .. import pool as mod_pool
+from .. import resolver as mod_resolver
+from .. import trace as mod_trace
+from .. import utils as mod_utils
+from .. import wiretap as mod_wiretap
 from .._device import resolve_device
 from ..entry import frozen_host
 from ..ops import fir
@@ -53,12 +60,16 @@ RTOL = ATOL = 1e-5   # fleet aggregates against a twin sampler
 POOL_HOST = 'fleet.local'
 
 
-def pool_layer(agent, resolver, monitor, utils, pool, trace, wiretap):
-    """The pool layer from the JAX package's modules (``cueball_tpu``'s
-    ``agent``, ``resolver``, ``monitor``, ``utils``, ``pool``,
-    ``trace``, ``wiretap``), passed in, never imported: the HTTP agent,
-    the static resolver, the process-wide pool monitor, and the host
-    seam over its clock, tracer and loop lag."""
+def pool_layer(agent=mod_agent, resolver=mod_resolver, monitor=mod_monitor,
+               utils=mod_utils, pool=mod_pool, trace=mod_trace,
+               wiretap=mod_wiretap):
+    """The pool layer of the example: the HTTP agent, the static
+    resolver, the process-wide pool monitor, and the host seam over
+    the layer's clock, tracer and loop lag. By default this package's
+    own modules; a caller may pass another package's ``agent``,
+    ``resolver``, ``monitor``, ``utils``, ``pool``, ``trace`` and
+    ``wiretap`` (the JAX package's, say), which this module never
+    imports."""
     return types.SimpleNamespace(
         HttpAgent=agent.HttpAgent, StaticIpResolver=resolver.StaticIpResolver,
         pool_monitor=monitor.pool_monitor,
@@ -205,10 +216,11 @@ async def run(layer, addrs=None, requests: int = 20, device=None,
             'pool_stats': stats}
 
 
-def main(layer, argv=None) -> int:
-    """The example's command line over a :func:`pool_layer`. Prints, last,
-    one JSON line of the run's counts; exits 1 when a request failed or
-    a twin disagreed."""
+def main(layer=None, argv=None) -> int:
+    """The example's command line over a :func:`pool_layer` (default:
+    this package's own). Prints, last, one JSON line of the run's
+    counts; exits 1 when a request failed or a twin disagreed."""
+    layer = layer or pool_layer()
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('addrs', nargs='*', metavar='IP[:PORT]',
                    help='backends (default: two servers in-process)')

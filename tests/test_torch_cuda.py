@@ -2,9 +2,10 @@
 its build from four threads at once), the control and health steps
 against their CPU runs, the live sampler through the kernel, the mesh
 forms over shards that share the card against the unsharded steps,
-the fleet passes over shard loop threads, the port bench's stages, and
-the saturating float-to-int32 cast on the non-finite rows whose JAX
-numbers ``chip_smoke.py`` freezes.
+the fleet passes over shard loop threads, the port bench's stages, the
+saturating float-to-int32 cast on the non-finite rows whose JAX
+numbers ``chip_smoke.py`` freezes, and a small fleet of the port's own
+pools sampled on the card (``chip_smoke.py``'s phase 19 in small).
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip without a card. On a GPU machine run them with
@@ -31,6 +32,7 @@ from cueball_tpu_torch.parallel import health as hl  # noqa: E402
 from cueball_tpu_torch.parallel import telemetry as tel  # noqa: E402
 from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
+from cueball_tpu_torch.examples import pool_fleet  # noqa: E402
 from cueball_tpu_torch.entry import (ShardedWorkload,  # noqa: E402
                                      SyntheticPool, example_inputs,
                                      health_example_columns, tick_inputs)
@@ -319,3 +321,22 @@ def test_nonfinite_health_rows_on_card(card, name, lat_sum):
     fleet = to_host_values({k: f[k]
                             for k in chip_smoke.JAX_NONFINITE_HEALTH_FLEET})
     assert fleet == chip_smoke.JAX_NONFINITE_HEALTH_FLEET
+
+
+def test_pool_fleet_on_card_matches_cpu_twin(card):
+    """Phase 19 in small: 8 pools over 4 servers, 200 claims at a
+    concurrency of 8, a tick every 10 claims with 4 taps, so that the
+    pools see advisories and decisions."""
+    before = fir.fir_apply_cuda.launches
+    res = asyncio.run(pool_fleet.run(pools=8, servers=4, claims=200,
+                                     concurrency=8, tick_every=10, taps=4))
+    assert res['served'] == 200 and res['failed'] == []
+    assert res['ticks'] == 22 == len(res['twin_records'])
+    assert fir.fir_apply_cuda.launches - before == res['fir_launches'] == 22
+    for k, (got, want) in enumerate(zip(res['records'],
+                                        res['twin_records'])):
+        chip_smoke.check_sampler_records('tick %d' % k, got, want,
+                                         counts=False)
+    reached = res['reached']
+    assert reached['applied'] > 0 and reached['decisions'] > 0
+    assert reached['advisories'] > 0

@@ -159,7 +159,7 @@ def test_fleet_mesh_sampler_matches_jax_example(capsys):
 
 
 def _pool_layer():
-    """The JAX package's pool layer, as the example's script builds it."""
+    """The JAX package's pool layer."""
     from cueball_tpu import (agent, monitor, pool, resolver, trace, utils,
                              wiretap)
     return inference_fleet_client.pool_layer(agent, resolver, monitor, utils,
@@ -213,6 +213,97 @@ def test_inference_fleet_client_matches_jax_sampler(monkeypatch, capsys):
                                        atol=0, err_msg=name)
     assert got['fleets'][-1]['mean_filtered'] > got['fleets'][0][
         'mean_filtered'] > 0
+
+
+def test_inference_fleet_client_same_on_either_pool_layer(monkeypatch):
+    """The example on the port's own pool layer and on the JAX
+    package's, on the same 24 requests, each layer's clock frozen at
+    the same instant and moved 200 ms after each tick (by a CPU twin
+    sampler that ticks at the tick's instant): both serve every request
+    and their per-tick fleet aggregates agree to rtol/atol 1e-5."""
+    from random import Random
+
+    from cueball_tpu import (agent, monitor, pool, resolver, trace, utils,
+                             wiretap)
+    from cueball_tpu_torch import utils as t_utils
+    from cueball_tpu_torch.parallel import FleetSampler
+
+    class Frozen:
+        def __init__(self):
+            self.ms = 1.0e6
+
+        def monotonic(self):
+            return self.ms / 1000.0
+
+        def wall(self):
+            return 1.7e9 + self.ms / 1000.0
+
+    class Advancing:
+        def __init__(self, layer, clock):
+            self.sampler = FleetSampler({'monitor': layer.pool_monitor,
+                                         'host': layer.host,
+                                         'device': 'cpu'})
+            self.clock = clock
+
+        def sample_once(self):
+            rec = self.sampler.sample_once()
+            self.clock.ms += 200.0
+            return rec
+
+        def stop(self):
+            self.sampler.stop()
+
+    def run_on(layer, utils_mod):
+        # The layer's process-wide monitor holds only this run's pool:
+        # an earlier test may have left pools registered there.
+        monkeypatch.setattr(layer.pool_monitor, 'pm_pools', {})
+        clock = Frozen()
+        old = utils_mod.set_clock(clock), utils_mod.set_rng(Random(5))
+        try:
+            return asyncio.run(inference_fleet_client.run(
+                layer, requests=24, device='cpu',
+                twins=[Advancing(layer, clock)]))
+        finally:
+            utils_mod.set_clock(old[0])
+            utils_mod.set_rng(old[1])
+
+    mine = run_on(inference_fleet_client.pool_layer(), t_utils)
+    theirs = run_on(inference_fleet_client.pool_layer(
+        agent, resolver, monitor, utils, pool, trace, wiretap), utils)
+    for got in (mine, theirs):
+        assert got['ok'] == 24 and got['failed'] == 0
+        assert got['ticks'] == 3 and got['agree'] == [3]
+    for a, b in zip(mine['fleets'], theirs['fleets']):
+        assert set(a) == set(b) and a['n_pools'] >= 1
+        for name in a:
+            np.testing.assert_allclose(a[name], b[name], rtol=RTOL,
+                                       atol=ATOL, err_msg=name)
+    assert mine['fleets'][-1]['mean_filtered'] > 0
+
+
+def test_pool_fleet_on_cpu_matches_its_twin(monkeypatch):
+    """The pool-fleet example small on the CPU: every claim served over
+    the port's own pools, every tick's fleet aggregates equal to the
+    twin's over the shadows, and the sampler's advisories and decisions
+    (its epoch) found on the pools, none of the twin's."""
+    from cueball_tpu_torch import pool_monitor
+    from cueball_tpu_torch.examples import pool_fleet
+    monkeypatch.setattr(pool_monitor, 'pm_pools', {})
+    res = asyncio.run(pool_fleet.run('cpu', 'cpu', pools=8, servers=4,
+                                     claims=200, concurrency=8,
+                                     tick_every=10, taps=4))
+    assert res['served'] == 200 and res['failed'] == []
+    assert res['ticks'] == 22 == len(res['twin_records'])
+    assert res['fir_launches'] == 0
+    for got, want in zip(res['records'], res['twin_records']):
+        assert got['fleet'] == want['fleet']
+        assert got['fleet']['n_pools'] == 8
+        assert got['control']['epoch'] == want['control']['epoch']
+        assert want['control']['applied'] == 0
+    reached = res['reached']
+    assert reached['epoch'] == 22
+    assert reached['applied'] > 0 and reached['decisions'] > 0
+    assert reached['advisories'] > 0
 
 
 def test_inference_fleet_client_script_with_cpu_twin(monkeypatch, capsys):

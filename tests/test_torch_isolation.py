@@ -3,10 +3,11 @@ package, nor ``torch.distributed`` (its mesh is one process over a grid
 of devices), and runs its telemetry step, its live sampler (with the
 control and health planes, plain and over a mesh), its fleet passes
 over shard loops, its kang routes, its debug dump, its examples'
-modules, its bench and its chip-capture tool where JAX cannot be
-imported. The inference-fleet example's script is the one file that
-reaches the JAX package: it passes that package's framework-neutral pool
-layer in, and imports none of its JAX modules."""
+modules, its bench, its chip-capture tool and its own pool layer (a
+``ConnectionPool`` over a loopback server, claimed, sampled and acted
+on by the control step) where neither JAX nor ``cueball_tpu`` can be
+imported. The inference-fleet example's script reaches no module of the
+JAX package either."""
 
 import ast
 import os
@@ -95,6 +96,33 @@ stages = []
 bench.run_stages(stages.append, device='cpu', pools=64, max_iters=1)
 assert [r['stage'] for r in stages] == bench.stage_names(64)
 assert 'fleet runtime' in debug.dump_fleet_runtime()
+
+
+async def pool_loop():
+    server = await asyncio.start_server(lambda r, w: None, '127.0.0.1', 0)
+    port = server.sockets[0].getsockname()[1]
+    res = ct.StaticIpResolver({'backends': [{'address': '127.0.0.1',
+                                             'port': port}]})
+    res.start()
+    pool = ct.ConnectionPool({
+        'domain': 'iso.local', 'spares': 1, 'maximum': 2,
+        'transport': 'asyncio', 'resolver': res, 'controlActuation': True,
+        'recovery': {'default': {'timeout': 2000, 'retries': 1,
+                                 'delay': 100}}})
+    hdl, conn = await pool.claim({'timeout': 2000})
+    hdl.release()
+    sampler = ct.FleetSampler({'monitor': ct.pool_monitor, 'device': 'cpu',
+                               'control': True, 'taps': 2})
+    recs = [sampler.sample_once() for _ in range(3)]
+    sampler.stop()
+    assert recs[-1]['fleet']['n_pools'] == 1.0
+    assert recs[-1]['control']['applied'] == 1
+    assert pool.p_ctrl_epoch == recs[-1]['control']['epoch'] == 3
+    assert pool.get_stats()['counters']['claim'] == 1
+    pool.stop()
+    res.stop()
+    server.close()
+asyncio.run(pool_loop())
 assert not [m for m, mod in sys.modules.items() if mod is not None and
             m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu', 'bench',
                                 'tools')]
@@ -134,6 +162,7 @@ def test_port_runs_with_jax_unimportable():
 
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / 'cueball_tpu_torch').rglob('*.py'))
+    files += sorted((ROOT / 'examples_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ('_cast', 'codel', 'debug', 'errors', 'events', 'host',
@@ -143,32 +172,39 @@ def test_port_sources_import_no_jax():
                    'examples/telemetry_replay',
                    'examples/fleet_mesh_sampler',
                    'examples/inference_fleet_client', 'bench',
-                   'tools/__init__', 'tools/chip_bench'):
+                   'tools/__init__', 'tools/chip_bench', 'metrics',
+                   'utils', 'runq', 'fsm', 'cqueue', 'wiretap', 'trace',
+                   'profile', 'connection_fsm', 'pool', 'resolver',
+                   'transport', 'agent'):
         assert 'cueball_tpu_torch/%s.py' % module in names
+    assert 'examples_torch/inference_fleet_client.py' in names
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert bad == []
 
 
 def test_example_script_reaches_only_the_pool_layer():
-    """``examples_torch/inference_fleet_client.py`` imports the port and,
-    of the JAX package, only the framework-neutral modules of its pool
-    layer: no JAX, no ``cueball_tpu.parallel`` or ``cueball_tpu.ops``.
-    It runs with JAX unimportable."""
+    """``examples_torch/inference_fleet_client.py`` runs the example on
+    the port's own pool layer: it imports no module of ``cueball_tpu``
+    (nor JAX), and runs with both unimportable."""
     script = ROOT / 'examples_torch' / 'inference_fleet_client.py'
     tree = ast.parse(script.read_text(encoding='utf-8'))
     names = [n for node in ast.walk(tree) for n in _imported_names(node)]
-    reached = {n for n in names if n.split('.')[0] == 'cueball_tpu'}
-    assert reached == {'cueball_tpu'} | {
-        'cueball_tpu.' + m for m in ('agent', 'monitor', 'pool', 'resolver',
-                                     'trace', 'utils', 'wiretap')}
-    assert not [n for n in names if n.split('.')[0] in ('jax', 'jaxlib')]
+    assert 'cueball_tpu_torch.examples' in names
+    assert not [n for n in names
+                if n.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu')]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     code = ("import runpy, sys\n"
-            "for name in ('jax', 'jaxlib'):\n"
+            "for name in ('jax', 'jaxlib', 'cueball_tpu'):\n"
             "    sys.modules[name] = None\n"
             "sys.argv = ['inference_fleet_client.py', '--requests', '4',\n"
             "            '--device', 'cpu']\n"
-            "runpy.run_path(%r, run_name='__main__')\n" % str(script))
+            "try:\n"
+            "    runpy.run_path(%r, run_name='__main__')\n"
+            "finally:\n"
+            "    assert not [m for m, mod in sys.modules.items()\n"
+            "                if mod is not None and m.split('.')[0] in\n"
+            "                ('jax', 'jaxlib', 'cueball_tpu')]\n"
+            % str(script))
     r = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT), env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

@@ -33,6 +33,8 @@ from cueball_tpu import utils as mod_utils  # noqa: E402
 from cueball_tpu import wiretap as mod_wiretap  # noqa: E402
 from cueball_tpu.parallel import health as JH  # noqa: E402
 from cueball_tpu_torch import convert, debug, host  # noqa: E402
+from cueball_tpu_torch import utils as t_utils  # noqa: E402
+from cueball_tpu_torch import wiretap as t_wiretap  # noqa: E402
 from cueball_tpu_torch import http_server as thttp  # noqa: E402
 from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.parallel import health as TH  # noqa: E402
@@ -245,7 +247,7 @@ def lag_samplers():
         mod_wiretap._lag_samplers.clear()
         host._lag_samplers.clear()
         mod_wiretap._lag_disabled_reason = None
-        host._lag_disabled_reason = None
+        t_wiretap._lag_disabled_reason = None
     clear()
     yield
     clear()
@@ -269,7 +271,7 @@ def test_loop_lag_sampler_matches_wiretap(lag_samplers):
     run_async(t())
 
 
-def test_loop_lag_sampler_refuses_like_wiretap(lag_samplers, monkeypatch):
+def test_loop_lag_sampler_refuses_like_wiretap(lag_samplers):
     """Off the main thread, where no loop runs, and under a clock that
     is not the system's, both packages refuse with the same reason."""
     out = []
@@ -293,14 +295,15 @@ def test_loop_lag_sampler_refuses_like_wiretap(lag_samplers, monkeypatch):
 
     async def t():
         jold = mod_utils.set_clock(Virtual())
-        monkeypatch.setattr(host, 'current_millis', lambda: 1000.0)
+        told = t_utils.set_clock(Virtual())
         try:
+            assert host.current_millis() == 1000.0
             assert not host.start_loop_lag_sampler()
             assert not mod_wiretap.start_loop_lag_sampler()
             assert (host.loop_lag_stats()['disabled_reason'] ==
                     mod_wiretap.loop_lag_stats()['disabled_reason'])
         finally:
-            monkeypatch.undo()
+            t_utils.set_clock(told)
             mod_utils.set_clock(jold)
         assert host.start_loop_lag_sampler()
     run_async(t())
