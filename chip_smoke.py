@@ -79,7 +79,13 @@ Phases, each of which exits non-zero on failure:
     the replay's [T, P] drops exactly, ``target`` and ``clamped``
     exactly off their rounding boundary, every float output and fleet
     aggregate to rtol 1e-5 / atol 1e-5; the mesh demo's per-tick drops
-    exactly and ``filtered`` to the same tolerance;
+    exactly and ``filtered`` to the same tolerance. Then the
+    ``ConnectionSet`` example's ``MuxClient`` over a ``DNSResolver``
+    that finds its three servers in SRV records of a UDP nameserver
+    in-process: 60 calls over all three, one server leaves the SRV set
+    and is killed once the resolver has removed it, 30 calls over the
+    other two; and ``cbresolve`` in DNS mode (the 8 SRV targets of a
+    service, with their keys) and in static mode;
 16. bench (main path): every stage of ``cueball_tpu_torch.bench`` at
     full size (the live step at 1,048,576 pools, the sweeps at
     ``CONTROL_SIZES`` and ``HEALTH_SIZES``, sampler ticks over 1024,
@@ -129,7 +135,27 @@ Phases, each of which exits non-zero on failure:
     one FIR launch per tick, and the card sampler's advisories and
     decisions (with its epoch) found on the pools; ``ulimit -n`` checked
     against the sockets the phase opens. Then the same fleet without
-    the twin for its claims per second and ms per tick.
+    the twin for its claims per second and ms per tick;
+20. discovered fleet (main path):
+    ``cueball_tpu_torch.examples.discovered_fleet``: phase 19's fleet
+    with its backends discovered in DNS. A UDP nameserver in-process
+    answers from the port's ``netsim.dns.SimZone``; 64 services, each
+    an SRV set of 8 targets (servers 0-7) with A records, TTLs 1 s; one
+    ``ConnectionPool`` per service built from its ``domain``,
+    ``service`` and ``resolvers`` (the port's ``DNSResolver`` over its
+    DNS client and a real socket). 2,000 claims at a concurrency of 32,
+    the card sampler and its CPU twin ticking every 20 claims as in
+    phase 19; at claim 1,000 the zone replaces target 0 by target 8
+    (server 8) in every SRV set and the run waits, at most 10 s, until
+    every pool's resolver has emitted ``removed`` for it and ``added``
+    for the new one. Then 50 requests of the port's ``HttpAgent`` by
+    hostname over the same nameserver. Every claim and request served,
+    every tick held against the twin as in phase 19, one FIR launch per
+    tick; after the swap no pool holds a connection to server 0,
+    server 8 served requests, every pool's monitor record lists the new
+    SRV set, and the card sampler's health table has a row for the new
+    backend. Then the same fleet without the twin for its claims per
+    second and ms per tick.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -137,6 +163,8 @@ and prints no result.
 """
 
 import asyncio
+import contextlib
+import io
 import json
 import logging
 import os
@@ -152,16 +180,18 @@ import urllib.request
 import numpy as np
 import torch
 
-from cueball_tpu_torch import (bench, convert, debug, host, http_server,
-                               profile_live)
+from cueball_tpu_torch import (bench, cli, convert, debug, host,
+                               http_server, profile_live)
 from cueball_tpu_torch._cast import to_int32_xla
 from cueball_tpu_torch._device import to_host_values
 from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
                                      dryrun_multichip, entry,
                                      example_inputs,
                                      health_example_columns, tick_inputs)
-from cueball_tpu_torch.examples import (fleet_mesh_sampler,
-                                        inference_fleet_client, pool_fleet,
+from cueball_tpu_torch.dns_resolver import DNSResolver
+from cueball_tpu_torch.examples import (discovered_fleet, fleet_mesh_sampler,
+                                        inference_fleet_client,
+                                        multiplexed_set_client, pool_fleet,
                                         telemetry_replay)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
@@ -197,6 +227,12 @@ FLEET_REQUESTS = 50
 #: of every connection): the process's own files, the card's, the
 #: servers' listeners.
 FD_HEADROOM = 256
+#: Phase 15's ConnectionSet over DNS: the SRV name of its servers, and
+#: the calls before and after one of them leaves the SRV set.
+MUX_SERVICE, MUX_DOMAIN = '_mux._tcp', 'mux.test'
+MUX_CALLS = (60, 30)
+#: Ports phase 15's zone names for cbresolve's lookup (nothing listens).
+CBRESOLVE_PORTS = [8000 + j for j in range(discovered_fleet.SERVERS)]
 FLEET_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             'examples_torch', 'inference_fleet_client.py')
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
@@ -1024,7 +1060,85 @@ def examples_phase():
              replay['drops'], replay_err, replay_edge, demo['agree'],
              demo['ticks'], demo['shards'], n_demo, demo['drops'],
              demo_err))
+    asyncio.run(discovery_examples())
     return n_replay + n_demo
+
+
+async def discovery_examples():
+    """Phase 15's DNS half: the multiplexed-set client's ``MuxClient``
+    over a ``DNSResolver`` that finds its three servers in SRV records,
+    one of them then dropped from the set; and ``cbresolve`` in DNS and
+    static mode. One nameserver in-process answers both."""
+    servers = [await multiplexed_set_client.DemoServer().start()
+               for _ in range(3)]
+    ports = [s.port for s in servers]
+    zone = discovered_fleet.fleet_zone(1, CBRESOLVE_PORTS)
+    srv_name = '%s.%s' % (MUX_SERVICE, MUX_DOMAIN)
+    for j, port in enumerate(ports):
+        zone.add_srv_backend(srv_name, 'm%d.%s' % (j, MUX_DOMAIN), port,
+                             '127.0.0.1', ttl=1, addr_ttl=1)
+    ns_transport, ns, ns_port = await discovered_fleet.serve_zone(zone)
+    nameserver = '127.0.0.1@%d' % ns_port
+    with discovered_fleet.pinned_v4_only():
+        try:
+            resolver = DNSResolver({
+                'domain': MUX_DOMAIN, 'service': MUX_SERVICE,
+                'resolvers': [nameserver],
+                'recovery': {'default': {'timeout': 1000, 'retries': 3,
+                                         'delay': 100}}})
+            client = multiplexed_set_client.MuxClient(resolver, target=3,
+                                                      maximum=4)
+            removed = []
+            resolver.on('removed', removed.append)
+            resolver.start()
+            first, after = MUX_CALLS
+            got = await asyncio.gather(*[client.call('square', {'x': i})
+                                         for i in range(first)])
+            check([r['value'] for r in got] == [i * i for i in range(first)]
+                  and {r['port'] for r in got} == set(ports),
+                  'mux over DNS: %r' % got[:4])
+            zone.remove(srv_name, 'SRV')
+            for j, port in enumerate(ports[1:], 1):
+                zone.add(srv_name, 'SRV', 'm%d.%s' % (j, MUX_DOMAIN),
+                         ttl=1, port=port)
+            await discovered_fleet.wait_until(lambda: removed, 10.0,
+                                              'mux: server 0 leaving')
+            await servers[0].kill()
+            got = await asyncio.gather(*[client.call('square', {'x': i})
+                                         for i in range(after)])
+            check({r['port'] for r in got} == set(ports[1:]),
+                  'mux after the swap: served by %r'
+                  % sorted({r['port'] for r in got}))
+            await client.stop()
+            resolver.stop()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = await asyncio.to_thread(cli.main, [
+                    '-r', nameserver, '-s', discovered_fleet.SERVICE,
+                    discovered_fleet.service_name(0)])
+            want = sorted('%-16s %5d %s' % (
+                '127.0.0.1', CBRESOLVE_PORTS[j],
+                discovered_fleet.backend_key(j, CBRESOLVE_PORTS))
+                for j in range(discovered_fleet.TARGETS))
+            check(rc == 0 and sorted(out.getvalue().splitlines()) == want,
+                  'cbresolve (DNS): exit %d, %r' % (rc, out.getvalue()))
+            static = io.StringIO()
+            with contextlib.redirect_stdout(static):
+                rc_static = await asyncio.to_thread(
+                    cli.main, ['-S', '127.0.0.1:9000', '127.0.0.1:9001'])
+            check(rc_static == 0 and len(static.getvalue().splitlines()) == 2,
+                  'cbresolve (static): exit %d, %r' % (rc_static,
+                                                       static.getvalue()))
+        finally:
+            for s in servers[1:]:
+                await s.kill()
+            ns_transport.close()
+    print('examples: multiplexed set over DNS: %d calls over %d servers, '
+          'then %d over the %d left after one left the SRV set; cbresolve '
+          'listed the %d SRV targets of %s (%d queries answered)'
+          % (first, len(ports), after, len(ports) - 1,
+             discovered_fleet.TARGETS, discovered_fleet.service_name(0),
+             sum(ns.answered.values())))
 
 
 def bench_phase(kind, smi):
@@ -1199,6 +1313,93 @@ def pool_fleet_phase(smi):
            'wall_s': alone['wall_s'], 'nvidia_smi': smi}
     print('pool fleet: %.1f claims/s, %.4f ms per card sampler tick (host '
           'clock, ends in a device sync), without the twin; %s'
+          % (alone['claims_per_s'], alone['ms_per_tick'], smi))
+    return launches, out
+
+
+def discovered_fleet_phase(smi):
+    """Phase 20. Returns the FIR launches and the phase's numbers."""
+    phase('20 discovered fleet (main path)')
+    fleet = discovered_fleet
+    need = 2 * fleet.SERVICES * fleet.MAXIMUM + FD_HEADROOM
+    soft, _hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    check(soft >= need, 'discovered fleet: ulimit -n %d is below the %d '
+          'sockets the phase needs' % (soft, need))
+    fir.fir_apply_cuda.launches = 0
+    res = asyncio.run(fleet.run())
+    launches = fir.fir_apply_cuda.launches
+    claims, ticks = fleet.CLAIMS, res['ticks']
+    check(res['device'].startswith('cuda'),
+          'discovered fleet: sampler on %s' % res['device'])
+    check(res['served'] == claims and not res['failed'],
+          'discovered fleet: %d of %d claims served; %s'
+          % (res['served'], claims, res['failed'][:3]))
+    check(res['agent'] == {'ok': fleet.AGENT_REQUESTS, 'failed': 0},
+          'discovered fleet: agent %r' % res['agent'])
+    check(ticks == claims // fleet.TICK_EVERY + 2,
+          'discovered fleet: %d ticks' % ticks)
+    check(len(res['twin_records']) == ticks, 'discovered fleet: twin ticks')
+    edge = 0
+    for k, (got, want) in enumerate(zip(res['records'],
+                                        res['twin_records'])):
+        check(got['fleet']['n_pools'] == fleet.SERVICES,
+              'discovered fleet tick %d: %r pools sampled'
+              % (k, got['fleet']['n_pools']))
+        edge += check_sampler_records('discovered fleet tick %d' % k, got,
+                                      want, counts=False)[0]
+    check(launches == res['fir_launches'] == ticks,
+          'discovered fleet: %d FIR launches in %d ticks' % (launches,
+                                                             ticks))
+    swap = res['swap']
+    n = fleet.SERVICES
+    check(swap['pools_removed_b0'] == n and swap['pools_added_b8'] == n,
+          'discovered fleet: swap seen by %r' % swap)
+    check(swap['pools_on_server0'] == 0,
+          'discovered fleet: %d pools still hold a connection to server 0'
+          % swap['pools_on_server0'])
+    check(swap['pools_listing_new_set'] == n,
+          'discovered fleet: %d pools list the new SRV set'
+          % swap['pools_listing_new_set'])
+    check(res['by_server'].get(fleet.TARGETS, 0) > 0,
+          'discovered fleet: server 8 served nothing: %r' % res['by_server'])
+    check(swap['b8_row'] < swap['health_rows'] and swap['b8_in_health'],
+          'discovered fleet: the health table has no row for the new '
+          'backend: %r' % swap)
+    reached = res['reached']
+    check(reached['applied'] > 0 and reached['decisions'] > 0
+          and reached['advisories'] > 0,
+          'discovered fleet: the sampler reached no pool: %r' % reached)
+    print('discovered fleet: %d claims over %d DNS-discovered pools '
+          'served, %r per server; %d agent requests by hostname; %d ticks '
+          'agree with the CPU twin (%d row-ticks on the target boundary); '
+          '%d FIR launches; swap seen by all %d pools in %.3f s, health '
+          'row %d of %d; nameserver answered %r (%d SRV refreshes); %d '
+          'decisions applied' % (res['served'], n, res['by_server'],
+                                 res['agent']['ok'], ticks, edge, launches,
+                                 n, swap['seconds'], swap['b8_row'],
+                                 swap['health_rows'], res['answered'],
+                                 res['srv_refreshes'], reached['applied']))
+    alone = asyncio.run(fleet.run(twin_device=None))
+    check(alone['served'] == claims and not alone['failed']
+          and alone['agent']['failed'] == 0,
+          'discovered fleet without twin: %d served' % alone['served'])
+    check(alone['fir_launches'] == alone['ticks'],
+          'discovered fleet without twin: %d launches in %d ticks'
+          % (alone['fir_launches'], alone['ticks']))
+    out = {'pools': n, 'claims': claims, 'concurrency': fleet.CONCURRENCY,
+           'ticks': ticks, 'fir_launches': launches,
+           'claims_per_s_with_twin': res['claims_per_s'],
+           'claims_per_s': alone['claims_per_s'],
+           'ms_per_tick': alone['ms_per_tick'],
+           'ms_per_tick_with_twin': res['ms_per_tick'],
+           'swap_s': [res['swap']['seconds'], alone['swap']['seconds']],
+           'discover_s': [res['discover_s'], alone['discover_s']],
+           'answered': [res['answered_with_agent'],
+                        alone['answered_with_agent']],
+           'srv_refreshes': [res['srv_refreshes'], alone['srv_refreshes']],
+           'wall_s': alone['wall_s'], 'nvidia_smi': smi}
+    print('discovered fleet: %.1f claims/s, %.4f ms per card sampler tick '
+          '(host clock, ends in a device sync), without the twin; %s'
           % (alone['claims_per_s'], alone['ms_per_tick'], smi))
     return launches, out
 
@@ -1627,6 +1828,8 @@ def main():
     print('nonfinite ' + json.dumps(nonfinite))
     pool_launches, pooled = pool_fleet_phase(smi)
     print('pool_fleet ' + json.dumps(pooled))
+    discovered_launches, discovered = discovered_fleet_phase(smi)
+    print('discovered_fleet ' + json.dumps(discovered))
 
     main_t = times[LIVE_POOLS]
     record = {
@@ -1637,14 +1840,16 @@ def main():
                      + meshed['sharded_live_launches']
                      + meshed['mesh_sampler_launches']
                      + routed['launches'] + example_launches
-                     + bench_launches + fleet_launches + pool_launches),
+                     + bench_launches + fleet_launches + pool_launches
+                     + discovered_launches),
         'launches_by_path': {
             'live_step': launches, 'sampler': sampler_launches,
             'sharded_live': meshed['sharded_live_launches'],
             'mesh_sampler': meshed['mesh_sampler_launches'],
             'router': routed['launches'], 'examples': example_launches,
             'bench': bench_launches, 'inference_fleet': fleet_launches,
-            'pool_fleet': pool_launches},
+            'pool_fleet': pool_launches,
+            'discovered_fleet': discovered_launches},
         'max_abs_err': max(max(e[0] for e in errs), routed['max_abs_err']),
         'max_rel_err': max(max(e[1] for e in errs), routed['max_rel_err']),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

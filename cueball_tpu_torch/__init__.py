@@ -7,23 +7,25 @@ control and health steps and the ``FleetSampler`` that drives them, on
 one device or split over a ``Mesh`` of devices in one process),
 written in PyTorch, with the FIR matvec as a hand-written CUDA kernel
 for Hopper (``csrc/fir.cu``); and a copy of that package's asyncio pool
-layer (``ConnectionPool``, ``StaticIpResolver``, ``HttpAgent``, the
-slot and resolver FSMs, the claim tracer and the wire ledger), whose
-pools the sampler samples and whose pools act on the control step's
-decisions. It imports nothing of ``cueball_tpu``.
+and service-discovery layer (``ConnectionPool``, ``ConnectionSet``,
+``DNSResolver`` with its DNS client, ``StaticIpResolver``,
+``HttpAgent``, the slot and resolver FSMs, the claim tracer, the wire
+ledger, the kang debug server, the ``cbresolve`` command
+(``python -m cueball_tpu_torch.cli``) and the ``netsim`` simulator),
+whose pools the sampler samples and whose pools act on the control
+step's decisions. It imports nothing of ``cueball_tpu``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card the default raises. Importing the
 package builds no kernel: ``kernels.build`` runs nvcc on first use.
 ``cueball_tpu_torch.entry`` holds the entry point
-``entry(device=None)`` and its seeded inputs. DNS resolution and
-``ConnectionSet`` are not ported yet: a domain name raises
-``CueBallError``.
+``entry(device=None)`` and its seeded inputs.
 """
 
 from .agent import HttpAgent, HttpsAgent
 from .codel import ControlledDelay
 from .cqueue import Queue
+from .cset import ConnectionSet
 from .errors import (ClaimHandleMisusedError, ClaimTimeoutError,
                      ConnectionClosedError, ConnectionError,
                      ConnectionTimeoutError, NoBackendsError,
@@ -33,8 +35,9 @@ from .events import EventEmitter
 from .fsm import FSM
 from .monitor import pool_monitor
 from .pool import ConnectionPool
-from .resolver import (ResolverFSM, StaticIpResolver,
-                       config_for_ip_or_domain, resolver_for_ip_or_domain)
+from .resolver import (DNSResolver, Resolver, ResolverFSM,
+                       StaticIpResolver, config_for_ip_or_domain,
+                       resolver_for_ip_or_domain)
 from .trace import disable_tracing, enable_tracing, trace_ring, tracing_enabled
 from .transport import (AsyncioTransport, FabricTransport, NativeTransport,
                         Transport, get_transport, register_transport)
@@ -58,7 +61,8 @@ __all__ = ['CodelState', 'FleetInputs', 'FleetSampler', 'FleetState',
            'fir_smooth', 'fleet_init', 'fleet_inputs', 'fleet_scan',
            'fleet_step', 'fleet_step_cuda', 'fleet_step_plain', 'gen_taps',
            'make_live_step', 'rebase_state', 'spread_delays',
-           'ConnectionPool', 'StaticIpResolver', 'ResolverFSM',
+           'ConnectionPool', 'ConnectionSet',
+           'Resolver', 'DNSResolver', 'StaticIpResolver', 'ResolverFSM',
            'resolver_for_ip_or_domain', 'config_for_ip_or_domain',
            'resolverForIpOrDomain', 'configForIpOrDomain',
            'HttpAgent', 'HttpsAgent',

@@ -24,7 +24,12 @@ a test can run the example on either. The script
 Without addresses it serves two HTTP servers of its own, in-process on
 127.0.0.1. ``--twin-device`` ticks a second sampler on that device on
 the same rows at the same instants and holds the fleet aggregates
-against it.
+against it. Or point it at a DNS service name instead of IPs
+(:func:`run_dns`; no sampler is attached):
+
+    python examples_torch/inference_fleet_client.py \
+        --domain infer.svc.example.com --service _http._tcp \
+        [--resolvers 10.0.0.53]
 """
 
 from __future__ import annotations
@@ -216,6 +221,30 @@ async def run(layer, addrs=None, requests: int = 20, device=None,
             'pool_stats': stats}
 
 
+async def run_dns(layer, domain, service, n_requests, resolvers=None) -> dict:
+    """Send ``n_requests`` GETs by hostname to ``domain``, whose
+    backends the agent discovers in DNS (the ``service`` SRV records,
+    falling back to its A/AAAA records) through ``resolvers`` (default:
+    the host's ``/etc/resolv.conf``). Returns the counts."""
+    agent = layer.HttpAgent({'defaultPort': 80, 'spares': 2, 'maximum': 8,
+                             'recovery': RECOVERY, 'service': service,
+                             'resolvers': resolvers,
+                             'initialDomains': [domain]})
+    ok = errs = 0
+    try:
+        for i in range(n_requests):
+            try:
+                await agent.request('GET', domain, '/')
+                ok += 1
+            except Exception as e:
+                errs += 1
+                print('request %d failed: %r' % (i, e))
+    finally:
+        await agent.stop()
+    print('done: %d ok, %d failed' % (ok, errs))
+    return {'ok': ok, 'failed': errs}
+
+
 def main(layer=None, argv=None) -> int:
     """The example's command line over a :func:`pool_layer` (default:
     this package's own). Prints, last, one JSON line of the run's
@@ -224,6 +253,11 @@ def main(layer=None, argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('addrs', nargs='*', metavar='IP[:PORT]',
                    help='backends (default: two servers in-process)')
+    p.add_argument('--domain', help='DNS mode: service domain')
+    p.add_argument('--service', default='_http._tcp')
+    p.add_argument('--resolvers', default=None,
+                   help='DNS mode: comma-separated nameservers (default: '
+                        '/etc/resolv.conf)')
     p.add_argument('--requests', type=int, default=20)
     p.add_argument('--device', default=None,
                    help='torch device (default: the CUDA card)')
@@ -233,6 +267,13 @@ def main(layer=None, argv=None) -> int:
     p.add_argument('--target-claim-delay', type=int, default=None,
                    help='enable CoDel shedding at this sojourn (ms)')
     args = p.parse_args(argv)
+    if args.domain:
+        resolvers = (args.resolvers.split(',') if args.resolvers
+                     else None)
+        res = asyncio.run(run_dns(layer, args.domain, args.service,
+                                  args.requests, resolvers))
+        print(json.dumps(res))
+        return 0 if res['failed'] == 0 else 1
     res = asyncio.run(run(layer, args.addrs, args.requests, args.device,
                           args.twin_device,
                           target_claim_delay=args.target_claim_delay))

@@ -1,29 +1,53 @@
-"""The port's kang routes: ``/kang/health`` and ``/kang/fleet`` over
-the port's health monitors and pool monitor, the counterpart of those
-two routes of ``cueball_tpu.http_server``.
+"""Kang-style debug HTTP server of the port: the JAX package's
+``cueball_tpu.http_server`` over the port's pool monitor, tracer,
+wiretap and health monitors.
 
-    GET /kang/health   - the port's health monitors' verdicts
-                         (``parallel.health.health_snapshot()``);
-                         ?limit=N keeps the newest N monitor rows (the
-                         fleet merge always covers all of them)
-    GET /kang/fleet    - the pool monitor's attached FleetSampler
+The reference exposes pool-monitor snapshots over Joyent's kang
+protocol, with the HTTP server supplied by the consumer (kang is a
+devDependency; reference lib/pool-monitor.js:60-216,
+test/monitor.test.js). Here the framework ships its own asyncio HTTP
+endpoint: persistent HTTP/1.1 connections (Connection: close and
+HTTP/1.0 honored), strict request-line/header parsing (400 on
+malformed, 405 on non-GET), and the kang service-ident handshake —
+/kang/snapshot leads with the `service` block (name, component, ident,
+version, pid) that kang aggregators use to identify an agent, built
+from PoolMonitor.to_kang_options().
 
-The JAX package's server keeps its other routes, which read its own FSM
-registry; a deployment that runs both packages serves both servers.
-The request parsing and the keep-alive loop are copies of that
-server's (HTTP/1.1 persistent connections, Connection: close and
-HTTP/1.0 honoured, 400 on a malformed request, 405 on a method other
-than GET). That server listens through its transport seam; this one
-listens with ``asyncio.start_server``: two read-only routes need no
-transport layer.
+    GET /kang/snapshot          - service ident + all registered objects
+    GET /kang/types             - ['pool', 'set', 'dns_res']
+    GET /kang/objects/<type>    - ids of registered objects of a type
+    GET /kang/obj/<type>/<id>   - one object's snapshot
+    GET /kang/fleet             - attached FleetSampler's batched decisions
+    GET /kang/traces            - claim/DNS trace ring as NDJSON spans;
+                                  ?limit=N keeps the newest N traces,
+                                  ?backend=<key> keeps only traces with
+                                  a span attributed to that backend
+    GET /kang/health            - the port's health monitors' verdicts
+                                  (``parallel.health.health_snapshot()``);
+                                  ?limit=N keeps the newest N monitor
+                                  rows (the fleet merge always covers
+                                  all of them)
+    GET /kang/transport         - transport wire ledger: per-seam
+                                  byte/syscall counters, socket_wait
+                                  wire totals and loop-lag stats;
+                                  ?transport=<name> / ?seam=<name>
+                                  narrow the counter table
+    GET /metrics                - prometheus text metrics (collector)
+
+``/kang/profile`` and ``/kang/shards`` belong to the sampling profiler
+and the shard router, which this package does not have yet: both answer
+404 with an error that says so.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
 import urllib.parse
 
+from . import trace as mod_trace
+from . import wiretap as mod_wiretap
 from .monitor import pool_monitor
 from .parallel.health import health_snapshot
 
@@ -34,8 +58,34 @@ _REASONS = {200: b'OK', 400: b'Bad Request', 404: b'Not Found',
             405: b'Method Not Allowed'}
 
 
+#: Routes of the JAX package's server whose modules this package does
+#: not have yet.
+_NOT_PORTED = {'/kang/profile': 'the sampling profiler',
+               '/kang/shards': 'the shard router'}
+
+
 def _json_default(o):
     return repr(o)
+
+
+def _kang_snapshot(monitor) -> dict:
+    """The kang agent handshake: service ident first, then stats and
+    the per-type object listings (kang snapshot shape; reference
+    lib/pool-monitor.js:60-79 toKangOptions feeds the same fields to
+    the kang server)."""
+    opts = monitor.to_kang_options()
+    snap = {
+        'service': {
+            'name': opts['service_name'],
+            'component': __name__.rpartition('.')[0],
+            'ident': opts['ident'],
+            'version': opts['version'],
+            'pid': os.getpid(),
+        },
+        'stats': opts['stats'](),
+    }
+    snap.update(monitor.snapshot())
+    return snap
 
 
 async def _read_request(reader):
@@ -106,38 +156,120 @@ def _bad(ctype: str, message: str):
     return 400, ctype, json.dumps({'error': message}).encode()
 
 
-def route(method: str, path: str, monitor=None):
+def _limit(params, ctype):
+    """``?limit=N`` of ``params``: (N or None, None), or (None, a 400
+    response) when it is malformed."""
+    if 'limit' not in params:
+        return None, None
+    try:
+        limit = int(params['limit'][-1])
+    except ValueError:
+        return None, _bad(ctype, 'limit must be an integer, got %r'
+                          % params['limit'][-1])
+    if limit < 0:
+        return None, _bad(ctype, 'limit must be >= 0, got %d' % limit)
+    return limit, None
+
+
+def _transport_payload(params, ctype):
+    """The wiretap ledger for ``/kang/transport``: (payload, None), or
+    (None, a 400 response) for a malformed or unknown parameter."""
+    unknown = sorted(set(params) - {'transport', 'seam'})
+    if unknown:
+        return None, _bad(ctype, 'unknown parameter(s) %s; supported: '
+                                 'transport, seam' % ', '.join(unknown))
+    seam = None
+    if 'seam' in params:
+        seam = params['seam'][-1]
+        if seam not in mod_wiretap.SEAMS:
+            return None, _bad(ctype, 'unknown seam %r; one of %s' % (
+                seam, ', '.join(mod_wiretap.SEAMS)))
+    transports = mod_wiretap.snapshot()
+    if 'transport' in params:
+        tname = params['transport'][-1]
+        if tname not in transports:
+            return None, _bad(ctype, 'unknown transport %r; active: %s' % (
+                tname, ', '.join(sorted(transports)) or '(none)'))
+        transports = {tname: transports[tname]}
+    if seam is not None:
+        transports = {t: {seam: seams[seam]}
+                      for t, seams in transports.items() if seam in seams}
+    return {'enabled': mod_wiretap.wiretap_enabled(),
+            'transports': transports,
+            'wire_ms': mod_wiretap.wire_totals(),
+            'loop_lag': mod_wiretap.loop_lag_stats()}, None
+
+
+def route(method: str, path: str, monitor=None, collector=None):
     """Dispatch one request; returns (status, ctype, body).
-    ``monitor`` is the pool monitor whose attached sampler
-    ``/kang/fleet`` shows (default: the port's ``pool_monitor``)."""
+    ``monitor`` is the pool monitor the object routes and
+    ``/kang/fleet`` read (default: the port's ``pool_monitor``);
+    ``collector`` serves ``/metrics``."""
     if method != 'GET':
         return 405, 'application/json', b'{"error": "GET only"}'
     path, _, query = path.partition('?')
     ctype = 'application/json'
+    mon = pool_monitor if monitor is None else monitor
     try:
-        if path == '/kang/fleet':
-            mon = pool_monitor if monitor is None else monitor
+        if path == '/kang/snapshot':
+            body = json.dumps(_kang_snapshot(mon),
+                              default=_json_default).encode()
+        elif path == '/kang/types':
+            body = json.dumps(mon.list_types()).encode()
+        elif path.startswith('/kang/objects/'):
+            t = path.split('/')[3]
+            body = json.dumps(mon.list_objects(t)).encode()
+        elif path.startswith('/kang/obj/'):
+            _, _, _, t, id_ = path.split('/', 4)
+            body = json.dumps(mon.get(t, id_),
+                              default=_json_default).encode()
+        elif path == '/kang/fleet':
             body = json.dumps(mon.fleet_snapshot(),
                               default=_json_default).encode()
+        elif path == '/kang/traces':
+            # Completed claim/DNS traces, one OTLP-field-named span per
+            # line (see trace.py). Empty body when tracing is off.
+            params = urllib.parse.parse_qs(query, keep_blank_values=True)
+            limit, bad = _limit(params, ctype)
+            if bad is not None:
+                return bad
+            backend = None
+            if 'backend' in params:
+                backend = params['backend'][-1]
+                if not mod_trace.backend_known(backend):
+                    return _bad(ctype, 'unknown backend %r' % backend)
+            body = mod_trace.filter_ndjson(
+                mod_trace.export_ndjson(), limit, backend).encode()
+            ctype = 'application/x-ndjson'
         elif path == '/kang/health':
             params = urllib.parse.parse_qs(query, keep_blank_values=True)
             unknown = sorted(set(params) - {'limit'})
             if unknown:
                 return _bad(ctype, 'unknown parameter(s) %s; supported: '
                                    'limit' % ', '.join(unknown))
+            limit, bad = _limit(params, ctype)
+            if bad is not None:
+                return bad
             payload = health_snapshot()
-            if 'limit' in params:
-                try:
-                    limit = int(params['limit'][-1])
-                except ValueError:
-                    return _bad(ctype, 'limit must be an integer, got %r'
-                                % params['limit'][-1])
-                if limit < 0:
-                    return _bad(ctype, 'limit must be >= 0, got %d' % limit)
+            if limit is not None:
                 payload = dict(payload,
                                monitors=payload['monitors'][-limit:]
                                if limit else [])
             body = json.dumps(payload, default=_json_default).encode()
+        elif path == '/kang/transport':
+            params = urllib.parse.parse_qs(query, keep_blank_values=True)
+            payload, bad = _transport_payload(params, ctype)
+            if bad is not None:
+                return bad
+            body = json.dumps(payload, default=_json_default).encode()
+        elif path == '/metrics' and collector is not None:
+            body = collector.collect().encode()
+            ctype = 'text/plain; version=0.0.4'
+        elif path in _NOT_PORTED:
+            return 404, ctype, json.dumps({
+                'error': '%s is not yet ported to %s: it needs %s' % (
+                    path, __name__.rpartition('.')[0], _NOT_PORTED[path])
+            }).encode()
         else:
             return 404, ctype, b'{"error": "not found"}'
     except (KeyError, ValueError, IndexError) as e:
@@ -145,7 +277,7 @@ def route(method: str, path: str, monitor=None):
     return 200, ctype, body
 
 
-async def _serve_client(reader, writer, monitor=None):
+async def _serve_client(reader, writer, monitor=None, collector=None):
     try:
         while True:
             req = await _read_request(reader)
@@ -157,7 +289,7 @@ async def _serve_client(reader, writer, monitor=None):
                 keep_alive = False
             else:
                 method, path, keep_alive = req
-                status, ctype, body = route(method, path, monitor)
+                status, ctype, body = route(method, path, monitor, collector)
             writer.write(
                 b'HTTP/1.1 %d %s\r\nContent-Type: %s\r\n'
                 b'Content-Length: %d\r\nConnection: %s\r\n\r\n' % (
@@ -174,10 +306,14 @@ async def _serve_client(reader, writer, monitor=None):
 
 
 async def serve_monitor(port: int = 0, host: str = '127.0.0.1',
-                        monitor=None):
-    """Start the endpoint on the running loop; returns the asyncio
-    server (its bound port: ``server.sockets[0].getsockname()[1]``).
-    Fetch from another thread than the loop's: a blocking client on
-    the serving loop deadlocks against it."""
-    return await asyncio.start_server(
-        lambda r, w: _serve_client(r, w, monitor=monitor), host, port)
+                        collector=None, transport=None, monitor=None):
+    """Start the kang endpoint on the running loop; returns the asyncio
+    server (its bound port: ``server.sockets[0].getsockname()[1]``). The
+    listening socket comes from the Transport seam (default
+    AsyncioTransport). Fetch from another thread than the loop's: a
+    blocking client on the serving loop deadlocks against it."""
+    from . import transport as mod_transport
+    return await mod_transport.get_transport(transport).serve(
+        lambda r, w: _serve_client(r, w, monitor=monitor,
+                                   collector=collector),
+        host, port)

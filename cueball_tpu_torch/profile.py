@@ -1,7 +1,9 @@
-"""The claim ledger of the JAX package's claim-path profiler
+"""The phase ledger of the JAX package's claim-path profiler
 (``cueball_tpu.profile``): per-claim time accounting replayed from a
 claim's recorded spans, which ``trace`` folds into the
-``cueball_claim_phase_ms`` histogram.
+``cueball_claim_phase_ms`` histogram, and its fold over many claims
+(:func:`phase_ledger`, :func:`ledger_summary`), which netsim's failure
+dumps embed. Pure replay arithmetic: no clock or RNG reads.
 
 This package's copy holds the ledger only. The sampling profiler
 (SIGPROF, flamegraphs, ``GET /kang/profile``) is not ported yet.
@@ -9,9 +11,11 @@ This package's copy holds the ledger only. The sampling profiler
 
 from __future__ import annotations
 
+from . import trace as mod_trace
 from . import wiretap as mod_wiretap
 
-__all__ = ['PHASES', 'SUB_PHASES', 'claim_ledger']
+__all__ = ['PHASES', 'SUB_PHASES', 'claim_ledger', 'phase_ledger',
+           'ledger_summary']
 
 #: The named claim phases, in ledger display order; the
 #: cueball_claim_phase_ms histogram's label values are drawn from it.
@@ -139,3 +143,49 @@ def _decompose_socket_wait(socket_wait: float, connect_parts) -> tuple:
                      'proto_parse': parse}, True)
     return ({'kernel_wait': socket_wait, 'loop_dispatch': 0.0,
              'proto_parse': 0.0}, False)
+
+
+def phase_ledger(traces=None) -> list:
+    """Ledgers for every completed claim in `traces` (default: the
+    live trace ring), oldest first."""
+    if traces is None:
+        traces = mod_trace.trace_ring()
+    out = []
+    for trace in traces:
+        led = claim_ledger(trace)
+        if led is not None:
+            out.append(led)
+    return out
+
+
+def ledger_summary(ledgers) -> dict:
+    """Fold per-claim ledgers into one cost-attribution record:
+    total wall, per-phase totals, the wall-weighted coverage, and the
+    socket_wait wire sub-phase totals (``wire_ms``/``wire_claims``
+    fold only claims the wiretap ledger actually decomposed, so the
+    undecomposed remainder stays visibly in the opaque parent
+    phase)."""
+    phase_ms = {p: 0.0 for p in PHASES}
+    wire_ms = {p: 0.0 for p in SUB_PHASES}
+    wire_claims = 0
+    wall = 0.0
+    named = 0.0
+    n = 0
+    for led in ledgers:
+        n += 1
+        wall += led['wall_ms']
+        for p, ms in led['phases'].items():
+            phase_ms[p] = phase_ms.get(p, 0.0) + ms
+        if led.get('wire_decomposed'):
+            wire_claims += 1
+            for p, ms in led['wire'].items():
+                wire_ms[p] = wire_ms.get(p, 0.0) + ms
+        named += led['wall_ms'] * led['coverage']
+    return {
+        'claims': n,
+        'wall_ms': wall,
+        'phase_ms': phase_ms,
+        'wire_ms': wire_ms,
+        'wire_claims': wire_claims,
+        'coverage': (named / wall) if wall > 0.0 else 1.0,
+    }

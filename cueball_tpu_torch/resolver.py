@@ -9,12 +9,9 @@ Rebuild of reference `lib/resolver.js`. Three pieces:
   and used by the static resolver and test fixtures).
 - :class:`StaticIpResolver` — emits a fixed backend list once on start
   (reference lib/resolver.js:1380-1456).
-- :func:`DNSResolver` — in the JAX package, the full DNS SRV→AAAA→A
-  service-discovery machine (reference lib/resolver.js:152-1377). DNS
-  resolution is not yet ported to this package: here it is a stand-in
-  that raises :class:`CueBallError`, so a domain name (and a pool built
-  without a resolver) fails at construction; name backends by IP with
-  :func:`StaticIpResolver`.
+- :class:`DNSResolver` — full DNS SRV→AAAA→A service-discovery machine
+  with TTL-driven refresh (reference lib/resolver.js:152-1377); defined
+  in dns_resolver.py and re-exported here.
 
 Plus the backend-identity hash (srv_key, reference lib/resolver.js:1157-1171),
 DNS error types (lib/resolver.js:1173-1208), and the
@@ -350,14 +347,10 @@ configForIpOrDomain = config_for_ip_or_domain
 parseIpOrDomain = parse_ip_or_domain
 
 
-def DNSResolver(options: dict):
-    """Stand-in for the DNS resolver, which this package does not have
-    yet: raises :class:`CueBallError` naming the domain."""
-    raise CueBallError(
-        'DNS resolution is not yet ported to cueball_tpu_torch: cannot '
-        'resolve domain %r; use StaticIpResolver with IP backends'
-        % ((options or {}).get('domain'),))
-
+# DNSResolver lives in its own module (the largest single component,
+# reference lib/resolver.js:152-1377); import at the bottom to avoid a
+# cycle (dns_resolver imports srv_key and error types from here).
+from .dns_resolver import DNSResolver  # noqa: E402
 
 # Pre-0.4 compatibility naming: the public "Resolver" IS the DNS resolver
 # (reference lib/resolver.js:9-13).

@@ -17,12 +17,14 @@ lands here, behind one ``Transport`` interface:
   ONE place in the package (outside ``netsim/``) allowed to import
   ``socket`` or touch loop socket APIs (``make check`` enforces this
   via the cblint C110 layering rule).
-- :class:`FabricTransport` and :class:`NativeTransport` — stubs. In
-  the JAX package the first is netsim's virtual data plane and the
-  second the plug-in surface of the ``native/`` C transport; neither
-  is part of this package yet, so both are registered but refuse:
-  ``get_transport('fabric')`` and ``get_transport('native')`` raise
-  :class:`TransportNotAvailableError`, as does every seam of either.
+- :class:`FabricTransport` — netsim's virtual data plane as a
+  transport: the pool constructor seam is ``fabric.constructor``, the
+  DNS seam is a ``SimWire``; no real socket exists anywhere.
+- :class:`NativeTransport` — a stub. In the JAX package it is the
+  plug-in surface of the ``native/`` C transport, which is not part of
+  this package yet, so it is registered but refuses:
+  ``get_transport('native')`` raises
+  :class:`TransportNotAvailableError`, as does every seam.
 
 Pool/FSM semantics do not live here and do not move: a transport
 supplies connections, streams, servers and DNS byte exchanges; who
@@ -394,6 +396,80 @@ class AsyncioTransport(Transport):
             writer.close()
 
 
+class FabricTransport(Transport):
+    """netsim's virtual data plane as a transport. ``fabric`` is a
+    ``netsim.Fabric`` (duck-typed — this module never
+    imports netsim); ``wire`` is an optional ``SimWire``-shaped DNS
+    byte mover. No real socket exists anywhere: connections are
+    SimConnections on virtual timers, so the same pool workload runs
+    byte-identically from a seed."""
+
+    name = 'fabric'
+
+    def __init__(self, fabric, wire=None, ident: str = 'netsim'):
+        self.fabric = fabric
+        self.wire = wire
+        self._ident = ident
+
+    def connector(self, backend: dict):
+        conn = self.fabric.constructor(backend)
+        st = mod_wiretap.seam_stats(self.name, 'connector')
+        if st is not None:
+            st.events += 1
+            mod_wiretap.watch(st, conn)
+        return conn
+
+    async def dns_udp(self, resolver: str, port: int, payload: bytes,
+                      timeout_s: float) -> bytes:
+        if self.wire is None:
+            raise NotImplementedError(
+                'FabricTransport has no SimWire attached')
+        st = mod_wiretap.seam_stats(self.name, 'dns_udp')
+        if st is not None:
+            st.events += 1
+            st.writes += 1
+            st.bytes_out += len(payload)
+        try:
+            data = await self.wire.udp(resolver, port, payload,
+                                       timeout_s)
+        except Exception:
+            if st is not None:
+                st.errors += 1
+            raise
+        if st is not None:
+            st.reads += 1
+            st.bytes_in += len(data)
+        return data
+
+    async def dns_tcp(self, resolver: str, port: int, payload: bytes,
+                      timeout_s: float) -> bytes:
+        if self.wire is None:
+            raise NotImplementedError(
+                'FabricTransport has no SimWire attached')
+        st = mod_wiretap.seam_stats(self.name, 'dns_tcp')
+        if st is not None:
+            st.events += 1
+        try:
+            data = await self.wire.tcp(resolver, port, payload,
+                                       timeout_s)
+        except Exception:
+            if st is not None:
+                st.errors += 1
+            raise
+        if st is not None:
+            # Mirror the asyncio seam's syscall-equivalent shape: one
+            # framed write out, length-prefix + body reads back.
+            st.connects += 1
+            st.writes += 1
+            st.bytes_out += len(payload) + 2
+            st.reads += 2
+            st.bytes_in += len(data) + 2
+        return data
+
+    def host_ident(self) -> str:
+        return self._ident
+
+
 class NativeTransport(Transport):
     """The plug-in surface for the C data path, which this package does
     not have yet: a registered-but-stubbed backend so the dispatch
@@ -429,21 +505,9 @@ class NativeTransport(Transport):
         self._unavailable('dns_tcp')
 
 
-class FabricTransport(NativeTransport):
-    """netsim's virtual data plane, which this package does not have
-    yet: registered but refusing, like :class:`NativeTransport`. Takes
-    the JAX package's constructor arguments and keeps none of them."""
-
-    name = 'fabric'
-
-    def __init__(self, fabric=None, wire=None, ident: str = 'netsim'):
-        pass
-
-
 # -- registry ---------------------------------------------------------------
 
-_REGISTRY: dict = {'asyncio': AsyncioTransport, 'native': NativeTransport,
-                  'fabric': FabricTransport}
+_REGISTRY: dict = {'asyncio': AsyncioTransport, 'native': NativeTransport}
 _default: Transport | None = None
 
 

@@ -32,7 +32,8 @@ from cueball_tpu_torch.parallel import health as hl  # noqa: E402
 from cueball_tpu_torch.parallel import telemetry as tel  # noqa: E402
 from cueball_tpu_torch.parallel.mesh import Mesh, unshard  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
-from cueball_tpu_torch.examples import pool_fleet  # noqa: E402
+from cueball_tpu_torch.examples import (  # noqa: E402
+    discovered_fleet, pool_fleet)
 from cueball_tpu_torch.entry import (ShardedWorkload,  # noqa: E402
                                      SyntheticPool, example_inputs,
                                      health_example_columns, tick_inputs)
@@ -340,3 +341,24 @@ def test_pool_fleet_on_card_matches_cpu_twin(card):
     reached = res['reached']
     assert reached['applied'] > 0 and reached['decisions'] > 0
     assert reached['advisories'] > 0
+
+
+def test_discovered_fleet_on_card_matches_cpu_twin(card):
+    """Phase 20 in small: 8 pools discovered in DNS, 200 claims at a
+    concurrency of 8 with the SRV sets changed at claim 100, a tick
+    every 10 claims with 4 taps, then 10 agent requests by hostname."""
+    before = fir.fir_apply_cuda.launches
+    res = asyncio.run(discovered_fleet.run(
+        services=8, claims=200, swap_at=100, concurrency=8, tick_every=10,
+        taps=4, agent_requests=10))
+    assert res['served'] == 200 and res['failed'] == []
+    assert res['agent'] == {'ok': 10, 'failed': 0}
+    assert res['ticks'] == 22 == len(res['twin_records'])
+    assert fir.fir_apply_cuda.launches - before == res['fir_launches'] == 22
+    for k, (got, want) in enumerate(zip(res['records'],
+                                        res['twin_records'])):
+        chip_smoke.check_sampler_records('tick %d' % k, got, want,
+                                         counts=False)
+    swap = res['swap']
+    assert swap['pools_removed_b0'] == swap['pools_added_b8'] == 8
+    assert swap['pools_on_server0'] == 0 and swap['b8_in_health']

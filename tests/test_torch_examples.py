@@ -322,3 +322,114 @@ def test_inference_fleet_client_script_with_cpu_twin(monkeypatch, capsys):
     summary = json.loads(lines[-1])
     assert summary['ok'] == 12 and summary['agree'] == [2]
     assert summary['fleet']['n_pools'] >= 1
+
+
+def test_discovered_fleet_on_cpu_matches_its_twin(monkeypatch):
+    """The discovered-fleet example small on the CPU: 200 claims over
+    16 pools whose backends come from DNS over a UDP nameserver, the
+    SRV sets changed at claim 100. Every claim and agent request is
+    served, every tick's fleet aggregates equal the twin's, and the
+    swap is seen by every pool, its connections, its monitor record,
+    the servers and the health table."""
+    from cueball_tpu_torch import pool_monitor
+    from cueball_tpu_torch.examples import discovered_fleet
+    monkeypatch.setattr(pool_monitor, 'pm_pools', {})
+    res = asyncio.run(discovered_fleet.run(
+        'cpu', 'cpu', services=16, claims=200, swap_at=100, concurrency=8,
+        tick_every=10, taps=4, agent_requests=10))
+    assert res['served'] == 200 and res['failed'] == []
+    assert res['agent'] == {'ok': 10, 'failed': 0}
+    assert res['ticks'] == 22 == len(res['twin_records'])
+    assert res['fir_launches'] == 0
+    for got, want in zip(res['records'], res['twin_records']):
+        assert got['fleet'] == want['fleet']
+        assert got['fleet']['n_pools'] == 16
+        assert want['control']['applied'] == 0
+    swap = res['swap']
+    assert swap['pools_removed_b0'] == swap['pools_added_b8'] == 16
+    assert swap['pools_on_server0'] == 0
+    assert swap['pools_listing_new_set'] == 16
+    assert swap['b8_row'] < swap['health_rows'] and swap['b8_in_health']
+    assert res['by_server'].get(discovered_fleet.TARGETS, 0) > 0
+    assert res['answered_before_swap']['SRV'] == 16
+    assert res['answered']['SRV'] >= 32
+    assert res['reached']['applied'] > 0
+
+
+def _masked(text: str) -> list:
+    """Output lines with every number and backend key masked."""
+    import re
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r'(\[set\] (?:added|removed)\s+)\S{12}', r'\1<key>',
+                      line)
+        out.append(re.sub(r'\d+', '<n>', line))
+    return sorted(out)
+
+
+def test_multiplexed_set_client_matches_jax(capsys):
+    """The port's multiplexed-set example prints what the JAX example
+    prints, numbers and keys masked: three servers advertised, 60 calls
+    spread, one server killed, 30 calls served by the other two, a
+    clean shutdown."""
+    from cueball_tpu_torch.examples import multiplexed_set_client
+    jax_example = load_jax_example('multiplexed_set_client')
+    asyncio.run(jax_example.main())
+    want = capsys.readouterr().out
+    asyncio.run(multiplexed_set_client.main())
+    got = capsys.readouterr().out
+    assert _masked(got) == _masked(want)
+    assert '30/30 calls served by the surviving backends' in got
+    assert got.count('[set] added') >= 3
+
+
+def test_inference_fleet_client_dns_mode_matches_jax(monkeypatch, capsys):
+    """``--domain`` mode on the port's pool layer and the JAX example's
+    ``run_dns`` on its own, against one nameserver on 127.0.0.1 whose
+    SRV records name two HTTP servers: every request served by both;
+    the port's command line too (``--resolvers``)."""
+    from cueball_tpu import dns_resolver as j_dns
+    from cueball_tpu_torch import dns_resolver as t_dns
+    from cueball_tpu_torch.examples import discovered_fleet
+    from cueball_tpu_torch.netsim import SimZone
+    jax_example = load_jax_example('inference_fleet_client')
+    domain, service = 'infer.fleet.test', '_http._tcp'
+    for mod in (j_dns, t_dns):
+        monkeypatch.setattr(mod, 'have_global_v6', lambda: False)
+
+    async def go():
+        servers, addrs = await inference_fleet_client._serve_fleet()
+        zone = SimZone()
+        for i, addr in enumerate(addrs):
+            zone.add_srv_backend('%s.%s' % (service, domain),
+                                 'b%d.%s' % (i, domain),
+                                 int(addr.partition(':')[2]), '127.0.0.1')
+        transport, ns, port = await discovered_fleet.serve_zone(zone)
+        nameserver = '127.0.0.1@%d' % port
+        # The JAX example reads its nameservers from the host's
+        # resolv.conf: point that at the nameserver.
+        monkeypatch.setattr(j_dns, '_read_resolv_conf',
+                            lambda path=None: [nameserver])
+        try:
+            await jax_example.run_dns(domain, service, 12)
+            want = capsys.readouterr().out
+            res = await inference_fleet_client.run_dns(
+                inference_fleet_client.pool_layer(), domain, service, 12,
+                resolvers=[nameserver])
+            got = capsys.readouterr().out
+            rc = await asyncio.to_thread(inference_fleet_client.main, None, [
+                '--domain', domain, '--service', service, '--requests', '5',
+                '--resolvers', nameserver])
+            cli = capsys.readouterr().out
+        finally:
+            transport.close()
+            for s in servers:
+                s.close()
+        return want, got, res, rc, cli, dict(ns.answered)
+
+    want, got, res, rc, cli, answered = asyncio.run(go())
+    assert got == want == 'done: 12 ok, 0 failed\n'
+    assert res == {'ok': 12, 'failed': 0}
+    assert rc == 0 and json.loads(cli.splitlines()[-1]) == {'ok': 5,
+                                                            'failed': 0}
+    assert answered['SRV'] >= 3

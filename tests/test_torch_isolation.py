@@ -3,10 +3,12 @@ package, nor ``torch.distributed`` (its mesh is one process over a grid
 of devices), and runs its telemetry step, its live sampler (with the
 control and health planes, plain and over a mesh), its fleet passes
 over shard loops, its kang routes, its debug dump, its examples'
-modules, its bench, its chip-capture tool and its own pool layer (a
+modules, its bench, its chip-capture tool, its own pool layer (a
 ``ConnectionPool`` over a loopback server, claimed, sampled and acted
-on by the control step) where neither JAX nor ``cueball_tpu`` can be
-imported. The inference-fleet example's script reaches no module of the
+on by the control step) and its service discovery (a ``DNSResolver``
+over a UDP nameserver, a ``ConnectionSet`` and a pool over it, a netsim
+``Scenario`` over ``FabricTransport``, ``cbresolve`` and the kang object
+routes) where neither JAX nor ``cueball_tpu`` can be imported. The inference-fleet example's script reaches no module of the
 JAX package either."""
 
 import ast
@@ -123,6 +125,67 @@ async def pool_loop():
     res.stop()
     server.close()
 asyncio.run(pool_loop())
+
+from cueball_tpu_torch import cli, dns_resolver, netsim, transport
+from cueball_tpu_torch.examples import discovered_fleet, multiplexed_set_client
+dns_resolver.have_global_v6 = lambda: False
+
+
+async def discovery():
+    zone = discovered_fleet.fleet_zone(1, [9000 + j for j in range(9)])
+    udp, ns, port = await discovered_fleet.serve_zone(zone)
+    res = ct.DNSResolver({'domain': discovered_fleet.service_name(0),
+                          'service': '_http._tcp',
+                          'resolvers': ['127.0.0.1@%d' % port],
+                          'recovery': {'default': {'timeout': 1000,
+                                                   'retries': 1,
+                                                   'delay': 10}}})
+    res.start()
+    while not res.is_in_state('running'):
+        await asyncio.sleep(0.005)
+    assert res.count() == 8
+    cset = ct.ConnectionSet({'constructor': lambda b: ct.EventEmitter(),
+                             'resolver': res, 'target': 1, 'maximum': 2,
+                             'recovery': {'default': {'timeout': 100,
+                                                      'retries': 0,
+                                                      'delay': 0}}})
+    assert cset.is_in_state('starting') or cset.is_in_state('running')
+    cset.stop()
+    res.stop()
+    udp.close()
+    assert ns.answered['SRV'] == 1
+asyncio.run(discovery())
+import contextlib
+import io
+listed = io.StringIO()
+with contextlib.redirect_stdout(listed):
+    assert cli.main(['-S', '127.0.0.1:8080']) == 0
+assert listed.getvalue().split()[:2] == ['127.0.0.1', '8080']
+
+fabric = netsim.Fabric()
+sc = netsim.Scenario('isolation', seed=1)
+
+
+async def simulated():
+    res = ct.StaticIpResolver({'backends': [{'address': '10.0.0.1',
+                                             'port': 80}]})
+    res.start()
+    pool = ct.ConnectionPool({'domain': 'sim', 'resolver': res,
+                              'transport': transport.FabricTransport(fabric),
+                              'spares': 1, 'maximum': 1,
+                              'recovery': {'default': {'timeout': 500,
+                                                       'retries': 1,
+                                                       'delay': 10}}})
+    out = await netsim.herd(pool, 5, timeout_ms=500)
+    pool.stop()
+    res.stop()
+    return out
+assert all(r['ok'] for r in sc.run(simulated))
+assert sc.trace
+for path in ('/kang/types', '/kang/snapshot', '/kang/traces',
+             '/kang/transport'):
+    assert http_server.route('GET', path)[0] == 200, path
+assert http_server.route('GET', '/kang/profile')[0] == 404
 assert not [m for m, mod in sys.modules.items() if mod is not None and
             m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu', 'bench',
                                 'tools')]
@@ -175,7 +238,11 @@ def test_port_sources_import_no_jax():
                    'tools/__init__', 'tools/chip_bench', 'metrics',
                    'utils', 'runq', 'fsm', 'cqueue', 'wiretap', 'trace',
                    'profile', 'connection_fsm', 'pool', 'resolver',
-                   'transport', 'agent'):
+                   'transport', 'agent', 'dns_client', 'dns_resolver',
+                   'cset', 'cli', 'netsim/__init__', 'netsim/clock',
+                   'netsim/dns', 'netsim/fabric', 'netsim/scenario',
+                   'examples/multiplexed_set_client',
+                   'examples/discovered_fleet', 'examples/pool_fleet'):
         assert 'cueball_tpu_torch/%s.py' % module in names
     assert 'examples_torch/inference_fleet_client.py' in names
     bad = [b for f in files for b in _forbidden_imports(f)]
