@@ -70,8 +70,9 @@ Phases, each of which exits non-zero on failure:
     gray, ``?limit=1`` keeps one monitor row, ``?bogus=1`` is a 400,
     ``POST`` a 405, an unknown path a 404, ``/kang/fleet`` shows the
     attached shard sampler; ``debug.install_debug_handler`` over a
-    recording handler and one SIGUSR2: both run, and the dump holds the
-    ``gray backend-7`` line;
+    recording handler and two SIGUSR2s: both handlers run each time, the
+    first turns the port's stack capture and profiler on and the second
+    off, and the dump holds the ``gray backend-7`` line;
 15. examples: both examples' ``main(device='cuda')`` in-process, with
     their FIR launches counted (one per replayed tick; one per shard
     and one plain per mesh-sampler tick), then each held against its
@@ -155,7 +156,28 @@ Phases, each of which exits non-zero on failure:
     server 8 served requests, every pool's monitor record lists the new
     SRV set, and the card sampler's health table has a row for the new
     backend. Then the same fleet without the twin for its claims per
-    second and ms per tick.
+    second and ms per tick;
+21. sharded fleet (main path): ``cueball_tpu_torch.examples.sharded_fleet``:
+    phase 19's 64 pools made through ``router.create_pool`` on the port's
+    own ``shard.FleetRouter`` with 4 thread shard loops (each pool on the
+    shard its ring assigns); 2,000 claim / GET / release cycles through
+    ``router.claim`` at a concurrency of 32, a ``sample_fleet`` pass every
+    20 claims and a ``control_fleet`` and a ``health_fleet`` pass every
+    100, each tick of a shard's card sampler preceded, in the same job on
+    its loop, by a CPU twin's over shadows of that shard's pools; the
+    profiler's SIGPROF sampler armed and a ``LoopAffinityChecker``
+    installed across the claims. Every claim served; every pool's
+    ``p_shard`` its ring shard; every pass's per-shard records held
+    against the twins' as in phase 19 and its reduced row against the
+    same reduction of the twins'; 4 FIR launches per pass; control
+    decisions found on the pools; ``profile_fleet`` and
+    ``wiretap_fleet`` merge 4 shards; profiler samples > 0 and the
+    flamegraph starting ``claim;``; ``GET /kang/shards`` equal to
+    ``router.snapshot()`` and ``GET /kang/profile`` non-empty; the FSM
+    dump listing the router, one line per shard and one per pool; no
+    loop-affinity violation; ``ulimit -n`` checked. Then the same fleet
+    without the twin for claims per second, ms per sample pass and FIR
+    launches per pass.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
@@ -181,7 +203,7 @@ import numpy as np
 import torch
 
 from cueball_tpu_torch import (bench, cli, convert, debug, host,
-                               http_server, profile_live)
+                               http_server, profile, profile_live, utils)
 from cueball_tpu_torch._cast import to_int32_xla
 from cueball_tpu_torch._device import to_host_values
 from cueball_tpu_torch.entry import (SamplerWorkload, ShardedWorkload,
@@ -192,7 +214,7 @@ from cueball_tpu_torch.dns_resolver import DNSResolver
 from cueball_tpu_torch.examples import (discovered_fleet, fleet_mesh_sampler,
                                         inference_fleet_client,
                                         multiplexed_set_client, pool_fleet,
-                                        telemetry_replay)
+                                        sharded_fleet, telemetry_replay)
 from cueball_tpu_torch.kernels import build
 from cueball_tpu_torch.ops import fir
 from cueball_tpu_torch.parallel import control as ctl
@@ -514,7 +536,21 @@ def check_sampler_records(tag, got, want, counts=True):
     for name, v in want['fleet'].items():
         check(abs(got['fleet'][name] - v) <= ATOL + RTOL * abs(v),
               '%s: fleet %s %r vs %r' % (tag, name, got['fleet'][name], v))
-    gc, wc = got['control'], want['control']
+    check([plane in got for plane in ('control', 'health')] ==
+          [plane in want for plane in ('control', 'health')],
+          '%s: the records run different planes' % tag)
+    if 'control' in want:
+        check_control_record(tag, got['control'], want['control'], off,
+                             counts)
+    if 'health' in want:
+        check_health_record(tag, got['health'], want['health'])
+    return int((~off).sum()), int(wo['drop'].sum())
+
+
+def check_control_record(tag, gc, wc, off, counts=True):
+    """A tick's control record against the twin's (see
+    check_sampler_records); ``off`` masks the rows off the target
+    boundary."""
     names = ('applied', 'rejected', 'skipped') if counts else ()
     for name in names + ('epoch', 'step_ms'):
         check(gc[name] == wc[name], '%s: control %s' % (tag, name))
@@ -525,7 +561,11 @@ def check_sampler_records(tag, got, want, counts=True):
     for name, v in wc['fleet'].items():
         check(abs(gc['fleet'][name] - v) <= RTOL * abs(v),
               '%s: control %s' % (tag, name))
-    gh, wh = got['health'], want['health']
+
+
+def check_health_record(tag, gh, wh):
+    """A health verdict record against the twin's: verdicts exactly,
+    the fleet's numbers to RTOL/ATOL."""
     check((gh['epoch'], gh['gray']) == (wh['epoch'], wh['gray']),
           '%s: health verdicts differ' % tag)
     check(sorted(gh['backends']) == sorted(wh['backends']),
@@ -538,7 +578,6 @@ def check_sampler_records(tag, got, want, counts=True):
         g = gh['fleet'][name]
         check(type(g) is type(v) and abs(g - v) <= ATOL + RTOL * abs(v),
               '%s: health %s %r vs %r' % (tag, name, g, v))
-    return int((~off).sum()), int(wo['drop'].sum())
 
 
 def leaves(tree):
@@ -971,19 +1010,28 @@ def surfaces_phase(run, card, card_work):
     log.addHandler(capture)
     before = signal.signal(signal.SIGUSR2,
                            lambda sig, frame: recorded.append(sig))
+    states = []
     try:
         prev = debug.install_debug_handler(signal.SIGUSR2)
-        os.kill(os.getpid(), signal.SIGUSR2)
-        deadline = time.monotonic() + 10.0
-        while not (recorded and dumps) and time.monotonic() < deadline:
-            time.sleep(0.01)
+        # The first signal turns stack capture and the samplers on, the
+        # second turns them off again.
+        for k in (1, 2):
+            os.kill(os.getpid(), signal.SIGUSR2)
+            deadline = time.monotonic() + 10.0
+            while not (len(recorded) == len(dumps) == k) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            states.append((utils.stack_traces_enabled(),
+                           profile.sampler_running()))
         debug.uninstall_debug_handler(prev, signal.SIGUSR2)
     finally:
         signal.signal(signal.SIGUSR2, before)
         log.removeHandler(capture)
-    check(recorded == [signal.SIGUSR2], 'the chained handler ran %d times'
-          % len(recorded))
-    check(len(dumps) == 1, 'the port handler logged %d dumps' % len(dumps))
+    check(recorded == [signal.SIGUSR2] * 2,
+          'the chained handler ran %d times' % len(recorded))
+    check(len(dumps) == 2, 'the port handler logged %d dumps' % len(dumps))
+    check(states == [(True, True), (False, False)],
+          'SIGUSR2 toggled stack capture and the profiler as %r' % states)
     gray_lines = [ln for ln in dumps[0].splitlines()
                   if ln.startswith('   gray backend-7 ')]
     sampler_lines = [ln for ln in dumps[0].splitlines()
@@ -991,9 +1039,10 @@ def surfaces_phase(run, card, card_work):
     check(gray_lines, 'the SIGUSR2 dump holds no gray backend-7 line')
     check(len(sampler_lines) >= SHARDS, 'the dump lists %d samplers'
           % len(sampler_lines))
-    print('SIGUSR2: the port dump and the chained handler both ran; %d '
-          'sampler lines, %d gray lines, e.g. %r'
-          % (len(sampler_lines), len(gray_lines), gray_lines[0].strip()))
+    print('SIGUSR2: the port dump and the chained handler both ran, twice '
+          '(capture and profiler on, then off); %d sampler lines, %d gray '
+          'lines, e.g. %r' % (len(sampler_lines), len(gray_lines),
+                              gray_lines[0].strip()))
     run(card.stop())
     host.stop_loop_lag_sampler()
     card_work.close()
@@ -1401,6 +1450,141 @@ def discovered_fleet_phase(smi):
     print('discovered fleet: %.1f claims/s, %.4f ms per card sampler tick '
           '(host clock, ends in a device sync), without the twin; %s'
           % (alone['claims_per_s'], alone['ms_per_tick'], smi))
+    return launches, out
+
+
+def check_pass_rows(tag, kind, row, pairs):
+    """A router pass's reduced row against the same reduction of the
+    twins' records: counts exactly, floats to RTOL/ATOL. The twins act
+    on no pool, so a control row's applied, rejected and skipped counts
+    are not held."""
+    if kind == 'sample':
+        want = reduce_fleet([w['fleet'] for _, w in pairs])
+    elif kind == 'control':
+        want = ctl.reduce_control([w['control'] for _, w in pairs])
+        want = {k: v for k, v in want.items()
+                if k not in ('applied', 'rejected', 'skipped')}
+    else:
+        want = hl.reduce_health([w['health'] for _, w in pairs])
+    for name, v in want.items():
+        g = row[name]
+        if isinstance(v, (bool, int, list, str)):
+            check(g == v, '%s: %s %r vs %r' % (tag, name, g, v))
+        else:
+            check(abs(g - v) <= ATOL + RTOL * abs(v),
+                  '%s: %s %r vs %r' % (tag, name, g, v))
+
+
+def sharded_fleet_phase(smi):
+    """Phase 21. Returns the FIR launches and the phase's numbers."""
+    phase('21 sharded fleet (main path)')
+    t_phase = time.perf_counter()
+    fleet = sharded_fleet
+    need = 2 * fleet.POOLS * fleet.MAXIMUM + FD_HEADROOM
+    soft, _hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    print('ulimit -n: soft %d; the phase needs %d' % (soft, need))
+    check(soft >= need, 'sharded fleet: ulimit -n %d is below the %d '
+          'sockets the phase needs' % (soft, need))
+    fir.fir_apply_cuda.launches = 0
+    res = asyncio.run(fleet.run())
+    launches = fir.fir_apply_cuda.launches
+    claims, shards, passes = fleet.CLAIMS, fleet.SHARDS, res['passes']
+    check(res['device'].startswith('cuda'),
+          'sharded fleet: samplers on %s' % res['device'])
+    check(res['served'] == claims and not res['failed'],
+          'sharded fleet: %d of %d claims served; %s'
+          % (res['served'], claims, res['failed'][:3]))
+    misplaced = {n: p for n, p in res['placement'].items() if p[0] != p[1]}
+    check(len(res['placement']) == fleet.POOLS and not misplaced,
+          'sharded fleet: p_shard != shard_of for %r' % misplaced)
+    n_control = claims // fleet.CONTROL_EVERY
+    check(len(passes) == claims // fleet.SAMPLE_EVERY + 2 * n_control,
+          'sharded fleet: %d passes' % len(passes))
+    check(launches == res['fir_launches'] == shards * len(passes),
+          'sharded fleet: %d FIR launches in %d passes of %d shards'
+          % (launches, len(passes), shards))
+    edge = 0
+    for k, p in enumerate(passes):
+        tag = 'sharded fleet pass %d (%s)' % (k, p['kind'])
+        for sid, (got, want) in enumerate(p['shards']):
+            edge += check_sampler_records('%s shard %d' % (tag, sid), got,
+                                          want, counts=False)[0]
+        check_pass_rows(tag, p['kind'], p['row'], p['shards'])
+    check(all(p['row']['n_pools'] == fleet.POOLS for p in passes
+              if p['kind'] != 'health'), 'sharded fleet: a pass missed pools')
+    reached = res['reached']
+    check(reached['applied'] > 0 and reached['decisions'] > 0
+          and reached['advisories'] > 0,
+          'sharded fleet: the card samplers reached no pool: %r' % reached)
+    merged = res['merged']
+    check(merged['profile']['n_shards'] == shards
+          and merged['wiretap']['n_shards'] == shards,
+          'sharded fleet: profile_fleet / wiretap_fleet merged %d / %d '
+          'shards' % (merged['profile']['n_shards'],
+                      merged['wiretap']['n_shards']))
+    check(merged['profile']['claims'] > 0,
+          'sharded fleet: profile_fleet saw no claim')
+    prof = res['profiler']
+    check(prof['armed'], 'sharded fleet: the SIGPROF sampler did not arm: '
+          '%s' % prof['at_start']['disabled_reason'])
+    check(prof['stats']['samples'] > 0,
+          'sharded fleet: the profiler took no sample: %r' % prof['stats'])
+    check(prof['flamegraph'].startswith('claim;'),
+          'sharded fleet: flamegraph starts %r' % prof['flamegraph'][:40])
+    check(res['kang_shards'] == {'routers': [res['snapshot']]},
+          'sharded fleet: GET /kang/shards differs from snapshot()')
+    check(res['kang_profile'].strip() != '',
+          'sharded fleet: GET /kang/profile is empty')
+    lines = res['dump'].splitlines()
+    head = 'fleet_router backend=thread shards=%d' % shards
+    check(head in lines, 'sharded fleet: the dump lacks %r' % head)
+    at = lines.index(head)
+    shard_lines = lines[at + 1:at + 1 + shards]
+    check([ln.split()[:2] for ln in shard_lines]
+          == [['shard', str(sid)] for sid in range(shards)],
+          'sharded fleet: dump shard lines %r' % shard_lines)
+    pool_lines = lines[at + 1 + shards:at + 1 + shards + fleet.POOLS]
+    check(sorted(ln.split()[1:] for ln in pool_lines) == sorted(
+        [name, '->', 'shard', str(sid)]
+        for name, (sid, _) in res['placement'].items()),
+        'sharded fleet: dump pool lines differ from the placement')
+    check(not res['violations'],
+          'sharded fleet: loop-affinity violations %r' % res['violations'][:3])
+    print('sharded fleet: %d claims over %d pools on %d shard loops served '
+          '(%r per shard); %d passes agree with the CPU twins (%d row-ticks '
+          'on the target boundary); %d FIR launches; %d decisions applied, '
+          '%d pools hold their shard\'s last epoch; profiler %d samples; '
+          'marshal sites %s; 0 affinity violations'
+          % (res['served'], fleet.POOLS, shards, res['by_shard'],
+             len(passes), edge, launches, reached['applied'],
+             reached['decisions'], prof['stats']['samples'],
+             ', '.join(res['marshals'])))
+    alone = asyncio.run(fleet.run(twin_device=None))
+    check(alone['served'] == claims and not alone['failed'],
+          'sharded fleet without twin: %d served' % alone['served'])
+    check(alone['fir_launches'] == shards * len(alone['passes']),
+          'sharded fleet without twin: %d launches in %d passes'
+          % (alone['fir_launches'], len(alone['passes'])))
+    check(not alone['violations'],
+          'sharded fleet without twin: affinity violations %r'
+          % alone['violations'][:3])
+    out = {'shards': shards, 'pools': fleet.POOLS, 'claims': claims,
+           'concurrency': fleet.CONCURRENCY, 'passes': len(passes),
+           'fir_launches': launches,
+           'launches_per_pass': alone['launches_per_pass'],
+           'claims_per_s_with_twin': res['claims_per_s'],
+           'claims_per_s': alone['claims_per_s'],
+           'ms_per_sample_pass': alone['ms_per_sample_pass'],
+           'ms_per_sample_pass_with_twin': res['ms_per_sample_pass'],
+           'profiler_samples': [prof['stats']['samples'],
+                                alone['profiler']['stats']['samples']],
+           'wall_s': alone['wall_s'],
+           'phase_s': time.perf_counter() - t_phase, 'nvidia_smi': smi}
+    print('sharded fleet: %.1f claims/s, %.4f ms per sample pass (host '
+          'clock, ends in a device sync), %.1f FIR launches per pass, '
+          'without the twin; %s' % (alone['claims_per_s'],
+                                    alone['ms_per_sample_pass'],
+                                    alone['launches_per_pass'], smi))
     return launches, out
 
 
@@ -1830,6 +2014,8 @@ def main():
     print('pool_fleet ' + json.dumps(pooled))
     discovered_launches, discovered = discovered_fleet_phase(smi)
     print('discovered_fleet ' + json.dumps(discovered))
+    sharded_launches, sharded = sharded_fleet_phase(smi)
+    print('sharded_fleet ' + json.dumps(sharded))
 
     main_t = times[LIVE_POOLS]
     record = {
@@ -1841,7 +2027,7 @@ def main():
                      + meshed['mesh_sampler_launches']
                      + routed['launches'] + example_launches
                      + bench_launches + fleet_launches + pool_launches
-                     + discovered_launches),
+                     + discovered_launches + sharded_launches),
         'launches_by_path': {
             'live_step': launches, 'sampler': sampler_launches,
             'sharded_live': meshed['sharded_live_launches'],
@@ -1849,7 +2035,8 @@ def main():
             'router': routed['launches'], 'examples': example_launches,
             'bench': bench_launches, 'inference_fleet': fleet_launches,
             'pool_fleet': pool_launches,
-            'discovered_fleet': discovered_launches},
+            'discovered_fleet': discovered_launches,
+            'sharded_fleet': sharded_launches},
         'max_abs_err': max(max(e[0] for e in errs), routed['max_abs_err']),
         'max_rel_err': max(max(e[1] for e in errs), routed['max_rel_err']),
         'ms': main_t['ms'], 'kernel_ms': main_t['ms'],

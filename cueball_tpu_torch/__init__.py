@@ -9,11 +9,13 @@ written in PyTorch, with the FIR matvec as a hand-written CUDA kernel
 for Hopper (``csrc/fir.cu``); and a copy of that package's asyncio pool
 and service-discovery layer (``ConnectionPool``, ``ConnectionSet``,
 ``DNSResolver`` with its DNS client, ``StaticIpResolver``,
-``HttpAgent``, the slot and resolver FSMs, the claim tracer, the wire
-ledger, the kang debug server, the ``cbresolve`` command
-(``python -m cueball_tpu_torch.cli``) and the ``netsim`` simulator),
-whose pools the sampler samples and whose pools act on the control
-step's decisions. It imports nothing of ``cueball_tpu``.
+``HttpAgent``, the slot and resolver FSMs, the claim tracer, the
+claim-path profiler, the wire ledger, the SIGUSR2 debug dump, the kang
+debug server, the shard router (``shard.FleetRouter``), the
+``cbresolve`` command (``python -m cueball_tpu_torch.cli``) and the
+``netsim`` simulator), whose pools the sampler samples and whose pools
+act on the control step's decisions. It imports nothing of
+``cueball_tpu``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card the default raises. Importing the
@@ -26,6 +28,9 @@ from .agent import HttpAgent, HttpsAgent
 from .codel import ControlledDelay
 from .cqueue import Queue
 from .cset import ConnectionSet
+from .debug import (LoopAffinityChecker, dump_fsm_histories,
+                    init_from_env as _debug_init_from_env,
+                    install_debug_handler)
 from .errors import (ClaimHandleMisusedError, ClaimTimeoutError,
                      ConnectionClosedError, ConnectionError,
                      ConnectionTimeoutError, NoBackendsError,
@@ -50,6 +55,12 @@ from .parallel import (FleetInputs, FleetSampler, FleetState, fleet_init,
                        fleet_step_cuda, fleet_step_plain, make_live_step,
                        rebase_state)
 
+# Live-attach diagnostics: CUEBALL_STACK_TRACES=1 enables claim stack
+# capture at startup; CUEBALL_DEBUG_SIGNAL=1 (or a signal name)
+# installs a handler that toggles capture and dumps all FSM histories
+# on each delivery.
+_debug_init_from_env()
+
 # The JAX package's camelCase aliases of the reference's export names.
 resolverForIpOrDomain = resolver_for_ip_or_domain
 configForIpOrDomain = config_for_ip_or_domain
@@ -67,6 +78,8 @@ __all__ = ['CodelState', 'FleetInputs', 'FleetSampler', 'FleetState',
            'resolverForIpOrDomain', 'configForIpOrDomain',
            'HttpAgent', 'HttpsAgent',
            'pool_monitor', 'poolMonitor', 'enableStackTraces',
+           'dump_fsm_histories', 'install_debug_handler',
+           'LoopAffinityChecker',
            'enable_tracing', 'disable_tracing', 'tracing_enabled',
            'trace_ring',
            'Transport', 'AsyncioTransport', 'FabricTransport',

@@ -83,7 +83,10 @@ def pool_layer(agent=mod_agent, resolver=mod_resolver, monitor=mod_monitor,
 
 async def _answer(name: bytes, reader, writer) -> None:
     """HTTP/1.1 keep-alive: every request is answered with the server's
-    name."""
+    name. The server closes its side once the client has closed: left
+    open, the half-closed connection would wait for the garbage
+    collector, whose finalizer closes it from whichever thread it runs
+    on."""
     try:
         while True:
             line = await reader.readline()
@@ -98,6 +101,8 @@ async def _answer(name: bytes, reader, writer) -> None:
             await writer.drain()
     except ConnectionError:
         pass
+    finally:
+        writer.close()
 
 
 async def _serve_fleet(names=('srv-a', 'srv-b')) -> tuple:

@@ -18,6 +18,7 @@ from PoolMonitor.to_kang_options().
     GET /kang/objects/<type>    - ids of registered objects of a type
     GET /kang/obj/<type>/<id>   - one object's snapshot
     GET /kang/fleet             - attached FleetSampler's batched decisions
+    GET /kang/shards            - started FleetRouters' shard snapshots
     GET /kang/traces            - claim/DNS trace ring as NDJSON spans;
                                   ?limit=N keeps the newest N traces,
                                   ?backend=<key> keeps only traces with
@@ -27,16 +28,17 @@ from PoolMonitor.to_kang_options().
                                   ?limit=N keeps the newest N monitor
                                   rows (the fleet merge always covers
                                   all of them)
+    GET /kang/profile           - claim-path profile as collapsed-stack
+                                  flamegraph text (ledger phases +
+                                  sampler hits; empty when idle);
+                                  ?phase=<name> keeps that phase's
+                                  stacks
     GET /kang/transport         - transport wire ledger: per-seam
                                   byte/syscall counters, socket_wait
                                   wire totals and loop-lag stats;
                                   ?transport=<name> / ?seam=<name>
                                   narrow the counter table
     GET /metrics                - prometheus text metrics (collector)
-
-``/kang/profile`` and ``/kang/shards`` belong to the sampling profiler
-and the shard router, which this package does not have yet: both answer
-404 with an error that says so.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import json
 import os
 import urllib.parse
 
+from . import profile as mod_profile
 from . import trace as mod_trace
 from . import wiretap as mod_wiretap
 from .monitor import pool_monitor
@@ -56,12 +59,6 @@ _MAX_LINE = 8192
 
 _REASONS = {200: b'OK', 400: b'Bad Request', 404: b'Not Found',
             405: b'Method Not Allowed'}
-
-
-#: Routes of the JAX package's server whose modules this package does
-#: not have yet.
-_NOT_PORTED = {'/kang/profile': 'the sampling profiler',
-               '/kang/shards': 'the shard router'}
 
 
 def _json_default(o):
@@ -226,6 +223,11 @@ def route(method: str, path: str, monitor=None, collector=None):
         elif path == '/kang/fleet':
             body = json.dumps(mon.fleet_snapshot(),
                               default=_json_default).encode()
+        elif path == '/kang/shards':
+            body = json.dumps(
+                {'routers': [r.snapshot()
+                             for r in mod_trace._active_fleet_routers()]},
+                default=_json_default).encode()
         elif path == '/kang/traces':
             # Completed claim/DNS traces, one OTLP-field-named span per
             # line (see trace.py). Empty body when tracing is off.
@@ -256,6 +258,29 @@ def route(method: str, path: str, monitor=None, collector=None):
                                monitors=payload['monitors'][-limit:]
                                if limit else [])
             body = json.dumps(payload, default=_json_default).encode()
+        elif path == '/kang/profile':
+            # Collapsed-stack flamegraph text: one "frame;frame N" line
+            # per ledger phase and sampler bucket; feed to any
+            # flamegraph renderer. Empty when nothing was profiled.
+            # ?phase=<name> keeps only that phase's stacks.
+            params = urllib.parse.parse_qs(query, keep_blank_values=True)
+            unknown = sorted(set(params) - {'phase'})
+            if unknown:
+                return _bad(ctype, 'unknown parameter(s) %s; supported: '
+                                   'phase' % ', '.join(unknown))
+            phase = None
+            if 'phase' in params:
+                phase = params['phase'][-1]
+                if phase not in mod_profile.PHASES:
+                    return _bad(ctype, 'unknown phase %r; one of %s' % (
+                        phase, ', '.join(mod_profile.PHASES)))
+            text = mod_profile.flamegraph()
+            if phase is not None:
+                kept = [ln for ln in text.splitlines()
+                        if ln.split(' ')[0].split(';')[1] == phase]
+                text = '\n'.join(kept) + '\n' if kept else ''
+            body = text.encode()
+            ctype = 'text/plain; charset=utf-8'
         elif path == '/kang/transport':
             params = urllib.parse.parse_qs(query, keep_blank_values=True)
             payload, bad = _transport_payload(params, ctype)
@@ -265,11 +290,6 @@ def route(method: str, path: str, monitor=None, collector=None):
         elif path == '/metrics' and collector is not None:
             body = collector.collect().encode()
             ctype = 'text/plain; version=0.0.4'
-        elif path in _NOT_PORTED:
-            return 404, ctype, json.dumps({
-                'error': '%s is not yet ported to %s: it needs %s' % (
-                    path, __name__.rpartition('.')[0], _NOT_PORTED[path])
-            }).encode()
         else:
             return 404, ctype, b'{"error": "not found"}'
     except (KeyError, ValueError, IndexError) as e:

@@ -1,34 +1,93 @@
-"""The phase ledger of the JAX package's claim-path profiler
-(``cueball_tpu.profile``): per-claim time accounting replayed from a
-claim's recorded spans, which ``trace`` folds into the
-``cueball_claim_phase_ms`` histogram, and its fold over many claims
-(:func:`phase_ledger`, :func:`ledger_summary`), which netsim's failure
-dumps embed. Pure replay arithmetic: no clock or RNG reads.
+"""Continuous claim-path profiler: phase ledger + sampling flamegraphs;
+this package's copy of the JAX package's ``profile``.
 
-This package's copy holds the ledger only. The sampling profiler
-(SIGPROF, flamegraphs, ``GET /kang/profile``) is not ported yet.
+Two instruments over one substrate, answering "where do a claim's
+microseconds go" with zero new hot-path instrumentation:
+
+- The **phase ledger** replays the trace ring's completed claim spans
+  (trace.py already records them for /kang/traces) into per-claim time
+  accounting across the named claim phases — queue wait, CoDel pacing,
+  runq pump, FSM transitions, socket wait, handshake, lease — holding
+  a ``phase_sum ≈ wall`` invariant per claim. Ledger numbers are pure
+  replay arithmetic: deterministic under netsim, and free when nobody
+  asks.
+
+- The **sampling profiler** attributes CPU time *within* those phases:
+  a SIGPROF handler (``signal.setitimer`` + frame inspection) appends
+  (phase, site, t) samples to a bounded overwrite-oldest ring, reading
+  a phase tag that the engine modules' ``_prof`` seams push around the
+  work whose code cannot be told from its frame (the CoDel pacer, the
+  connect initiation). This package has no native emitter, so this is
+  the only engine, the one the JAX package runs under
+  ``CUEBALL_NO_NATIVE``. The sampler refuses to arm under a substituted
+  clock (netsim VirtualClock) so simulated scenarios stay
+  deterministic.
+
+Surfaces: collapsed-stack flamegraph text at ``GET /kang/profile``,
+``cueball_claim_phase_ms{phase=...}`` histograms on /metrics, a
+profiler section in the SIGUSR2 dump (:func:`dump_profile`),
+netsim failure dumps embedding the ledger of the slowest claims, and
+:meth:`shard.FleetRouter.profile_fleet` merging per-shard records
+(:func:`reduce_profile`) like ``reduce_health``.
 """
 
 from __future__ import annotations
 
+import signal
+import sys
+
 from . import trace as mod_trace
+from . import utils as mod_utils
 from . import wiretap as mod_wiretap
 
-__all__ = ['PHASES', 'SUB_PHASES', 'claim_ledger', 'phase_ledger',
-           'ledger_summary']
+__all__ = [
+    'PHASES',
+    'SUB_PHASES',
+    'claim_ledger',
+    'phase_ledger',
+    'ledger_summary',
+    'profile_record',
+    'reduce_profile',
+    'flamegraph',
+    'start_sampler',
+    'stop_sampler',
+    'sampler_running',
+    'sampler_stats',
+    'dump_profile',
+]
 
-#: The named claim phases, in ledger display order; the
-#: cueball_claim_phase_ms histogram's label values are drawn from it.
+#: The named claim phases, in ledger/flamegraph display order. Order
+#: and membership are a cross-surface contract: the sampler's phase
+#: ids map into this tuple via _PHASE_BY_ID, and the
+#: cueball_claim_phase_ms histogram label values are drawn from it.
 PHASES = ('queue_wait', 'codel', 'runq_pump', 'fsm',
           'socket_wait', 'handshake', 'lease', 'other')
 
 #: socket_wait sub-phases (re-exported from wiretap, the module that
-#: defines them). They live in ``led['wire']``, not in
-#: ``led['phases']``: ``sum(phases) == wall`` stays on the eight named
-#: phases, while ``sum(led['wire'].values()) == phases['socket_wait']``
-#: holds exactly per claim.
+#: defines them): where the opaque socket_wait phase actually went —
+#: in-kernel readiness wait, event-loop dispatch lag, or Python
+#: protocol/constructor work. They live in ``led['wire']``, NOT in
+#: ``led['phases']``: PHASES membership is the sampler / histogram
+#: label contract and the ``sum(phases) == wall`` identity stays on
+#: the eight named phases, while ``sum(led['wire'].values()) ==
+#: phases['socket_wait']`` holds exactly per claim.
 SUB_PHASES = mod_wiretap.SUB_PHASES
 
+# Sampler phase id -> phase name (the JAX package's C PROF_PHASE_*
+# numbering, kept so sample records read alike in both packages).
+_PHASE_BY_ID = ('other', 'queue_wait', 'codel', 'runq_pump', 'fsm',
+                'socket_wait', 'handshake', 'lease')
+_PHASE_IDS = {name: i for i, name in enumerate(_PHASE_BY_ID)}
+
+DEFAULT_INTERVAL_MS = 5.0
+DEFAULT_SAMPLER_RING = 8192
+
+# Flamegraph weights are integer microseconds (collapsed-stack format
+# wants integer counts); sampler stacks are weighted by sample count.
+_US_PER_MS = 1000
+
+
+# -- phase ledger -----------------------------------------------------------
 
 def claim_ledger(trace) -> dict | None:
     """Per-claim time accounting across :data:`PHASES` (all ms).
@@ -189,3 +248,311 @@ def ledger_summary(ledgers) -> dict:
         'wire_claims': wire_claims,
         'coverage': (named / wall) if wall > 0.0 else 1.0,
     }
+
+
+# -- fleet merge (FleetRouter.profile_fleet) --------------------------------
+
+def profile_record(shard: int | None = None) -> dict:
+    """One shard's (or the whole process's) mergeable profile record.
+
+    With `shard` set, only claims stamped with that shard id count —
+    thread-backend shards share one process-wide trace ring, so the
+    filter is what keeps per-shard records disjoint. Spawn-backend
+    children call this in their own process (their ring IS the
+    shard's) and still pass their id so the record is labelled."""
+    ledgers = phase_ledger()
+    if shard is not None:
+        ledgers = [led for led in ledgers
+                   if led['shard'] is None or led['shard'] == shard]
+    rec = ledger_summary(ledgers)
+    rec['shard'] = shard
+    rec['sampler'] = sampler_stats()
+    return rec
+
+
+def reduce_profile(records) -> dict:
+    """Merge per-shard profile records shard -> host, the same
+    reduction shape as health.reduce_health: totals sum, coverage is
+    re-derived wall-weighted, and the per-shard records ride along."""
+    records = [r for r in records if r]
+    phase_ms = {p: 0.0 for p in PHASES}
+    wire_ms = {p: 0.0 for p in SUB_PHASES}
+    wire_claims = 0
+    wall = 0.0
+    named = 0.0
+    claims = 0
+    for rec in records:
+        claims += rec.get('claims', 0)
+        wall += rec.get('wall_ms', 0.0)
+        for p, ms in (rec.get('phase_ms') or {}).items():
+            phase_ms[p] = phase_ms.get(p, 0.0) + ms
+        for p, ms in (rec.get('wire_ms') or {}).items():
+            wire_ms[p] = wire_ms.get(p, 0.0) + ms
+        wire_claims += rec.get('wire_claims', 0)
+        named += rec.get('wall_ms', 0.0) * rec.get('coverage', 0.0)
+    return {
+        'n_shards': len(records),
+        'claims': claims,
+        'wall_ms': wall,
+        'phase_ms': phase_ms,
+        'wire_ms': wire_ms,
+        'wire_claims': wire_claims,
+        'coverage': (named / wall) if wall > 0.0 else 1.0,
+        'shards': records,
+    }
+
+
+# -- sampling profiler ------------------------------------------------------
+
+# Accumulated samples: (phase, site) -> count. Fed by _collect_samples;
+# survives sampler stop so the flamegraph covers the whole profiled
+# window.
+_samples: dict = {}
+_sample_total = 0
+_sampler_engine: str | None = None   # 'pure' | None
+_disabled_reason: str | None = None
+_pure_ring: list = []
+_pure_cap = DEFAULT_SAMPLER_RING
+_pure_dropped = 0
+_pure_prev_handler = None
+
+# Phase hint for the sampler, and the seam the engine modules use for
+# the phases a frame cannot tell (pool.py's CoDel pacer,
+# connection_fsm's connect initiation): while the sampler runs, those
+# modules' `_prof` global points at this module and they bracket their
+# work with push_phase/pop_phase; stopped, they pay one global load +
+# None check.
+_pure_hint = _PHASE_IDS['other']
+
+# Modules that carry a `_prof` seam, named from this package's own
+# name (never another package's copy of them); bound lazily at sampler
+# start so importing profile never drags the whole engine in.
+_PACKAGE = __name__.rpartition('.')[0]
+_SEAM_MODULES = tuple('%s.%s' % (_PACKAGE, name) for name in
+                      ('pool', 'connection_fsm', 'runq', 'fsm'))
+
+
+def push_phase(name: str) -> int:
+    """Tag the engine phase for subsequent samples; returns the
+    previous tag for pop_phase."""
+    global _pure_hint
+    phase = _PHASE_IDS[name]
+    prev = _pure_hint
+    _pure_hint = phase
+    return prev
+
+
+def pop_phase(token: int) -> None:
+    global _pure_hint
+    _pure_hint = token
+
+
+def _pure_sigprof(signum, frame):
+    """The SIGPROF handler: attribute the sample to the explicit phase
+    hint when one is pushed, else by the interrupted frame's module
+    (runq -> runq_pump, fsm engines -> fsm, the selector poll ->
+    socket_wait)."""
+    global _pure_dropped
+    phase = _pure_hint
+    site = 'engine'
+    if frame is not None:
+        fname = frame.f_code.co_filename
+        site = frame.f_code.co_name
+        if phase == _PHASE_IDS['other']:
+            if fname.endswith('runq.py'):
+                phase = _PHASE_IDS['runq_pump']
+            elif fname.endswith(('fsm.py', 'connection_fsm.py')):
+                phase = _PHASE_IDS['fsm']
+            elif 'selectors' in fname or site == 'select':
+                phase = _PHASE_IDS['socket_wait']
+    if len(_pure_ring) >= _pure_cap:
+        del _pure_ring[0]
+        _pure_dropped += 1
+    _pure_ring.append((phase, site, mod_utils.current_millis()))
+
+
+def _bind_seams(value) -> None:
+    for name in _SEAM_MODULES:
+        mod = sys.modules.get(name)
+        if mod is not None and hasattr(mod, '_prof'):
+            mod._prof = value
+
+
+def start_sampler(interval_ms: float = DEFAULT_INTERVAL_MS,
+                  ring: int = DEFAULT_SAMPLER_RING) -> bool:
+    """Arm the SIGPROF sampler. Returns False (and records why in
+    sampler_stats()['disabled_reason']) instead of arming when a
+    non-system clock is installed — netsim scenarios must stay
+    deterministic, and profiling virtual time is meaningless — or when
+    the platform can't deliver the signal here (non-main thread)."""
+    global _sampler_engine, _disabled_reason, _pure_cap, \
+        _pure_prev_handler
+    if _sampler_engine is not None:
+        return True
+    if not isinstance(mod_utils.get_clock(), mod_utils.SystemClock):
+        _disabled_reason = 'non-system clock installed (netsim?)'
+        return False
+    try:
+        _pure_prev_handler = signal.signal(signal.SIGPROF, _pure_sigprof)
+        signal.setitimer(signal.ITIMER_PROF, interval_ms / 1000.0,
+                         interval_ms / 1000.0)
+    except (ValueError, OSError) as e:
+        _disabled_reason = 'cannot arm SIGPROF here (%s)' % e
+        return False
+    _pure_cap = int(ring)
+    _sampler_engine = 'pure'
+    _disabled_reason = None
+    _bind_seams(sys.modules[__name__])
+    return True
+
+
+def stop_sampler() -> bool:
+    """Disarm the sampler, folding pending samples into the
+    accumulated flamegraph counts. Returns whether it was running."""
+    global _sampler_engine, _pure_prev_handler
+    if _sampler_engine is None:
+        return False
+    _bind_seams(None)
+    try:
+        signal.setitimer(signal.ITIMER_PROF, 0.0)
+        if _pure_prev_handler is not None:
+            signal.signal(signal.SIGPROF, _pure_prev_handler)
+    except (ValueError, OSError):
+        pass
+    _pure_prev_handler = None
+    _collect_samples()
+    _sampler_engine = None
+    return True
+
+
+def sampler_running() -> bool:
+    return _sampler_engine is not None
+
+
+def _collect_samples() -> None:
+    """Drain the ring into the accumulated (phase, site) counts."""
+    global _sample_total
+    raw, _pure_ring[:] = list(_pure_ring), []
+    for phase_id, site, _t in raw:
+        key = (_PHASE_BY_ID[phase_id]
+               if phase_id < len(_PHASE_BY_ID) else 'other', str(site))
+        _samples[key] = _samples.get(key, 0) + 1
+        _sample_total += 1
+
+
+def sampler_stats() -> dict:
+    out = {
+        'running': _sampler_engine is not None,
+        'engine': _sampler_engine,
+        'samples': _sample_total,
+        'disabled_reason': _disabled_reason,
+    }
+    if _sampler_engine == 'pure':
+        out['ring'] = {'capacity': _pure_cap,
+                       'pending': len(_pure_ring),
+                       'dropped': _pure_dropped,
+                       'running': True}
+    return out
+
+
+def reset_samples() -> None:
+    """Drop accumulated sample counts (bench arms start clean)."""
+    global _sample_total, _pure_dropped
+    _collect_samples()
+    _samples.clear()
+    _sample_total = 0
+    _pure_dropped = 0
+
+
+# -- flamegraph -------------------------------------------------------------
+
+def flamegraph(traces=None) -> str:
+    """Collapsed-stack flamegraph text (the /kang/profile payload).
+
+    Ledger stacks first — ``claim;<phase> <microseconds>`` in fixed
+    PHASES order, zero phases skipped — then, only when the sampler
+    has actually collected samples, ``sampler;<phase>;<site> <count>``
+    stacks sorted by phase order then site. The ledger half is pure
+    span replay, so on a seeded netsim run (where the sampler is
+    auto-disabled) the output is byte-identical run to run."""
+    total = ledger_summary(phase_ledger(traces))
+    out = []
+    for phase in PHASES:
+        ms = total['phase_ms'].get(phase, 0.0)
+        if phase == 'socket_wait' and total.get('wire_claims', 0) > 0:
+            # Wiretap decomposed at least one claim: nest the wire
+            # sub-phases under the parent frame, keeping only the
+            # undecomposed remainder on the parent line. With wiretap
+            # off this branch never runs and the output stays
+            # byte-identical to the un-decomposed format.
+            wire = total['wire_ms']
+            residual = ms - sum(wire.values())
+            us = int(round(max(residual, 0.0) * _US_PER_MS))
+            if us > 0:
+                out.append('claim;%s %d' % (phase, us))
+            for sub in SUB_PHASES:
+                sub_us = int(round(wire.get(sub, 0.0) * _US_PER_MS))
+                if sub_us > 0:
+                    out.append('claim;%s;%s %d' % (phase, sub, sub_us))
+            continue
+        us = int(round(ms * _US_PER_MS))
+        if us > 0:
+            out.append('claim;%s %d' % (phase, us))
+    _collect_samples()
+    if _samples:
+        order = {p: i for i, p in enumerate(PHASES)}
+        for (phase, site), count in sorted(
+                _samples.items(),
+                key=lambda kv: (order.get(kv[0][0], 99), kv[0][1])):
+            out.append('sampler;%s;%s %d' % (phase, site, count))
+    return '\n'.join(out) + '\n' if out else ''
+
+
+# -- SIGUSR2 dump section ---------------------------------------------------
+
+def dump_profile(limit: int = 5) -> str:
+    """Profiler section for the SIGUSR2 dump: sampler state, the
+    fleet-wide cost attribution, and the slowest claims' ledgers.
+    '' when there is nothing to report (sampler never armed and no
+    completed claims) so the dump stays absent-but-well-formed."""
+    ledgers = phase_ledger()
+    if not ledgers and _sampler_engine is None and not _samples:
+        return ''
+    out = ['-- claim-path profiler --']
+    stats = sampler_stats()
+    if stats['running']:
+        ring = stats.get('ring') or {}
+        out.append('  sampler: running engine=%s samples=%d '
+                   'ring_pending=%s dropped=%s' %
+                   (stats['engine'], stats['samples'],
+                    ring.get('pending', '?'), ring.get('dropped', '?')))
+    elif stats['disabled_reason']:
+        out.append('  sampler: disabled (%s)' %
+                   stats['disabled_reason'])
+    else:
+        out.append('  sampler: stopped samples=%d' % stats['samples'])
+    if ledgers:
+        total = ledger_summary(ledgers)
+        parts = ['%s=%.1f' % (p, total['phase_ms'][p])
+                 for p in PHASES if total['phase_ms'][p] > 0.0]
+        out.append('  ledger: %d claims wall=%.1fms coverage=%.3f %s'
+                   % (total['claims'], total['wall_ms'],
+                      total['coverage'], ' '.join(parts)))
+        if total.get('wire_claims', 0) > 0:
+            out.append('  socket_wait wire: %s (%d claims decomposed)'
+                       % (' '.join('%s=%.1f' % (p, total['wire_ms'][p])
+                                   for p in SUB_PHASES),
+                          total['wire_claims']))
+        slow = sorted(ledgers, key=lambda led: led['wall_ms'],
+                      reverse=True)[:limit]
+        for led in slow:
+            parts = ['%s=%.1f' % (p, led['phases'][p])
+                     for p in PHASES if led['phases'][p] > 0.0]
+            out.append('    %s %8.1fms %-9s %s' % (
+                led['trace_id'][:8], led['wall_ms'], led['outcome'],
+                ' '.join(parts)))
+    if _samples:
+        top = sorted(_samples.items(), key=lambda kv: -kv[1])[:limit]
+        out.append('  top sample sites: ' + ' '.join(
+            '%s;%s=%d' % (p, s, c) for (p, s), c in top))
+    return '\n'.join(out) + '\n'

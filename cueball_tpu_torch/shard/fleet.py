@@ -1,22 +1,21 @@
-"""The port's fleet passes over a sharded router: the counterpart of
-``cueball_tpu.shard.FleetRouter``'s ``sample_fleet``, ``control_fleet``
-and ``health_fleet`` (``shard/router.py:478-558``, ``:622-638``) and
-of the health part of its ``snapshot()`` (``:434-443``).
+"""The fleet passes of a sharded router: the counterpart of the JAX
+package's ``FleetRouter.sample_fleet``, ``control_fleet`` and
+``health_fleet`` (``shard/router.py:478-558``, ``:622-638``) and of the
+health part of its ``snapshot()`` (``:434-443``).
 
 A :class:`FleetRuntime` keeps one port ``FleetSampler`` per router
 shard and ticks each on its own shard's loop, so the sampler's row
 columns, its pools' hooks and the control step's actuation stay on the
-loop that owns those pools. The router is duck-typed: it needs
-``fr_backend``, ``fr_fsms[sid].is_in_state('running')``,
-``fr_workers[sid].run(job, *args)`` (awaitable; the sample pass uses
-it, as the JAX router does, without counting a submit) and
-``run_on(sid, job, *args)`` (awaitable; the control and health
-passes). A ``cueball_tpu.shard.FleetRouter`` with the thread or inline
-backend serves, and so does ``entry.ShardedWorkload``.
-
-The samplers live in the runtime, never in the router's
-``fr_samplers``: the JAX router's own ``snapshot()`` would reduce them
-through its health module, which imports jax.
+loop that owns those pools. This package's :class:`~.router.FleetRouter`
+runs its passes through one, whose samplers are the router's
+``fr_samplers``. The router is duck-typed: it needs ``fr_backend``,
+``fr_fsms[sid].is_in_state('running')``, ``fr_workers[sid].run(job,
+*args)`` (awaitable; the sample pass uses it, as the JAX router does,
+without counting a submit) and ``run_on(sid, job, *args)`` (awaitable;
+the control and health passes). So a runtime also runs over
+``entry.ShardedWorkload``, which stands in for this package's router
+where a workload of duck-typed pools is wanted, and over the JAX
+package's thread or inline router in the tests.
 
 A pass awaits the shards' jobs one after another, as the JAX router
 does (``router.py:516-521``, ``:631-636``), and raises the first
@@ -44,11 +43,11 @@ class FleetRuntime:
     """Per-shard port samplers over a router's shards.
 
     ``options`` go to every shard's ``FleetSampler`` with ``shard`` set
-    to the shard id: ``monitor`` (a deployment of the JAX package's
-    pools passes ``cueball_tpu.monitor.pool_monitor``), ``host`` (there,
-    ``host.seam_over(...)``), ``device`` (default CUDA, which must
-    exist), ``objectives``, ``interval``, ``control``, ``health``,
-    ``mesh``. As on the JAX router, a shard's sampler is made by its
+    to the shard id: ``monitor`` (default this package's pool monitor;
+    a deployment of the JAX package's pools passes that package's),
+    ``host`` (there, ``host.seam_over(...)``), ``device`` (default CUDA,
+    which must exist), ``objectives``, ``interval``, ``control``,
+    ``health``, ``mesh``. As on the JAX router, a shard's sampler is made by its
     first pass, and a control or health pass turns that plane on for
     good."""
 
@@ -143,8 +142,9 @@ class FleetRuntime:
         """Stop every shard's sampler on its own loop (inline for a
         shard that no longer runs) and forget them."""
         router = self.rt_router
-        samplers, self.rt_samplers = self.rt_samplers, {}
-        for sid, sampler in sorted(samplers.items()):
+        samplers = sorted(self.rt_samplers.items())
+        self.rt_samplers.clear()      # the router's fr_samplers too
+        for sid, sampler in samplers:
             fsm = router.fr_fsms.get(sid)
             if fsm is not None and fsm.is_in_state('running'):
                 await router.fr_workers[sid].run(sampler.stop)

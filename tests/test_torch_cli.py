@@ -32,6 +32,7 @@ from cueball_tpu import http_server as j_http  # noqa: E402
 from cueball_tpu import metrics as j_metrics  # noqa: E402
 from cueball_tpu import netsim as j_netsim  # noqa: E402
 from cueball_tpu import pool as j_pool  # noqa: E402
+from cueball_tpu import profile as j_profile  # noqa: E402
 from cueball_tpu import resolver as j_resolver  # noqa: E402
 from cueball_tpu import trace as j_trace  # noqa: E402
 from cueball_tpu import transport as j_transport  # noqa: E402
@@ -43,6 +44,7 @@ from cueball_tpu_torch import http_server as t_http  # noqa: E402
 from cueball_tpu_torch import metrics as t_metrics  # noqa: E402
 from cueball_tpu_torch import netsim as t_netsim  # noqa: E402
 from cueball_tpu_torch import pool as t_pool  # noqa: E402
+from cueball_tpu_torch import profile as t_profile  # noqa: E402
 from cueball_tpu_torch import resolver as t_resolver  # noqa: E402
 from cueball_tpu_torch import trace as t_trace  # noqa: E402
 from cueball_tpu_torch import transport as t_transport  # noqa: E402
@@ -316,9 +318,16 @@ def test_kang_routes_match_jax():
 
 @pytest.mark.parametrize('path', ['/kang/profile', '/kang/shards'])
 def test_routes_not_yet_ported_answer_404(path):
+    """The two routes that answered 404 until the profiler and the shard
+    router were ported now answer as the JAX package's do, with no
+    router started and nothing profiled; a POST is still a 405."""
+    for prof, trace in ((j_profile, j_trace), (t_profile, t_trace)):
+        prof.stop_sampler()
+        prof.reset_samples()
+        trace.disable_tracing()
     status, ctype, body = t_http.route('GET', path)
-    assert status == 404 and ctype == 'application/json'
-    assert 'not yet ported' in json.loads(body)['error']
+    assert (status, ctype, body) == j_http._route('GET', path, None)
+    assert status == 200 and 'not yet ported' not in body.decode()
     assert t_http.route('POST', path)[0] == 405
 
 

@@ -5,14 +5,21 @@ control and health planes, plain and over a mesh), its fleet passes
 over shard loops, its kang routes, its debug dump, its examples'
 modules, its bench, its chip-capture tool, its own pool layer (a
 ``ConnectionPool`` over a loopback server, claimed, sampled and acted
-on by the control step) and its service discovery (a ``DNSResolver``
+on by the control step), its service discovery (a ``DNSResolver``
 over a UDP nameserver, a ``ConnectionSet`` and a pool over it, a netsim
 ``Scenario`` over ``FabricTransport``, ``cbresolve`` and the kang object
-routes) where neither JAX nor ``cueball_tpu`` can be imported. The inference-fleet example's script reaches no module of the
-JAX package either."""
+routes) and its shard router (a claim routed through a 2-shard thread
+router under the profiler's sampler, the FSM dump, ``/kang/shards``
+and ``/kang/profile``) where neither JAX nor ``cueball_tpu`` can be
+imported. The inference-fleet example's script reaches no module of the
+JAX package either. No string constant of the port's sources but a
+docstring names a module of the JAX package: a seam bound by name
+(the profiler's ``_prof`` seams, a ``sys.modules`` lookup, a job spec)
+would otherwise reach that package when both are loaded."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,6 +38,7 @@ for name in ('jax', 'jaxlib', 'cueball_tpu', '__graft_entry__', 'bench',
              'tools'):
     sys.modules[name] = None
 import cueball_tpu_torch as ct
+import cueball_tpu_torch.shard
 from cueball_tpu_torch.entry import entry
 fn, (state, inp) = entry(device='cpu')
 state, out, fleet = fn(state, inp)
@@ -185,7 +193,41 @@ assert sc.trace
 for path in ('/kang/types', '/kang/snapshot', '/kang/traces',
              '/kang/transport'):
     assert http_server.route('GET', path)[0] == 200, path
-assert http_server.route('GET', '/kang/profile')[0] == 404
+
+
+async def routed():
+    router = ct.shard.FleetRouter({'shards': 2, 'backend': 'thread',
+                                   'device': 'cpu'})
+    await router.start()
+    server = await asyncio.start_server(lambda r, w: None, '127.0.0.1', 0)
+    port = server.sockets[0].getsockname()[1]
+
+    def build():
+        res = ct.StaticIpResolver({'backends': [{'address': '127.0.0.1',
+                                                 'port': port}]})
+        res.start()
+        return ct.ConnectionPool({
+            'domain': 'iso.routed', 'spares': 1, 'maximum': 1,
+            'transport': 'asyncio', 'resolver': res,
+            'recovery': {'default': {'timeout': 2000, 'retries': 1,
+                                     'delay': 100}}}), res
+    rec = await router.create_pool('iso.routed', factory=build)
+    assert profile.start_sampler()
+    claim = await router.claim('iso.routed', {'timeout': 2000})
+    await claim.release()
+    assert profile.stop_sampler()
+    dump = ct.dump_fsm_histories()
+    assert 'fleet_router backend=thread shards=2' in dump
+    assert '  pool iso.routed' in dump
+    assert http_server.route('GET', '/kang/shards')[0] == 200
+    await router.run_on(rec.shard_id, rec.pool.stop)
+    await router.run_on(rec.shard_id, rec.aux[0].stop)
+    await router.stop()
+    server.close()
+from cueball_tpu_torch import profile
+asyncio.run(routed())
+for path in ('/kang/profile', '/kang/profile?phase=lease'):
+    assert http_server.route('GET', path)[0] == 200, path
 assert not [m for m, mod in sys.modules.items() if mod is not None and
             m.split('.')[0] in ('jax', 'jaxlib', 'cueball_tpu', 'bench',
                                 'tools')]
@@ -231,7 +273,9 @@ def test_port_sources_import_no_jax():
     for module in ('_cast', 'codel', 'debug', 'errors', 'events', 'host',
                    'http_server', 'monitor', 'parallel/control',
                    'parallel/health', 'parallel/mesh', 'parallel/sampler',
-                   'shard/__init__', 'shard/fleet', 'examples/__init__',
+                   'shard/__init__', 'shard/fleet', 'shard/ring',
+                   'shard/worker', 'shard/proc', 'shard/router',
+                   'examples/__init__', 'examples/sharded_fleet',
                    'examples/telemetry_replay',
                    'examples/fleet_mesh_sampler',
                    'examples/inference_fleet_client', 'bench',
@@ -247,6 +291,41 @@ def test_port_sources_import_no_jax():
     assert 'examples_torch/inference_fleet_client.py' in names
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert bad == []
+
+
+def _docstrings(tree) -> set:
+    """ids of the string constants that are docstrings."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+def _jax_module_strings(path: Path) -> list:
+    """String constants of ``path``, docstrings aside, that name a
+    module of the JAX package (``cueball_tpu.`` followed by a name)."""
+    tree = ast.parse(path.read_text(encoding='utf-8'), filename=str(path))
+    docs = _docstrings(tree)
+    return ['%s:%d %r' % (path.name, node.lineno, node.value)
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs
+            and re.search(r'\bcueball_tpu\.[A-Za-z_]', node.value)]
+
+
+def test_port_strings_name_no_jax_module():
+    files = sorted((ROOT / 'cueball_tpu_torch').rglob('*.py'))
+    files += sorted((ROOT / 'examples_torch').rglob('*.py'))
+    files.append(ROOT / 'chip_smoke.py')
+    assert [b for f in files for b in _jax_module_strings(f)] == []
+    # The scan sees what it is for: a seam named in a string constant.
+    probe = ROOT / 'cueball_tpu' / 'profile.py'
+    assert any("'cueball_tpu.pool'" in b for b in _jax_module_strings(probe))
 
 
 def test_example_script_reaches_only_the_pool_layer():

@@ -1,7 +1,7 @@
 """The port's host surfaces against the JAX package's, on the CPU:
-``/kang/health`` and ``/kang/fleet`` (``http_server``), the SIGUSR2
-section and the failure record (``debug``), and the loop-lag sampler
-(``host``).
+``/kang/health``, ``/kang/fleet``, ``/kang/profile`` and
+``/kang/shards`` (``http_server``), the SIGUSR2 section and the failure
+record (``debug``), and the loop-lag sampler (``host``).
 
 A JAX ``HealthMonitor`` and a port one (through ``host.seam_over``)
 are fed the same claims through the JAX trace layer's sinks, each the
@@ -28,6 +28,7 @@ torch = pytest.importorskip('torch')
 
 from cueball_tpu import debug as jdebug  # noqa: E402
 from cueball_tpu import http_server as jhttp  # noqa: E402
+from cueball_tpu import profile as jprofile  # noqa: E402
 from cueball_tpu import trace as mod_trace  # noqa: E402
 from cueball_tpu import utils as mod_utils  # noqa: E402
 from cueball_tpu import wiretap as mod_wiretap  # noqa: E402
@@ -36,6 +37,8 @@ from cueball_tpu_torch import convert, debug, host  # noqa: E402
 from cueball_tpu_torch import utils as t_utils  # noqa: E402
 from cueball_tpu_torch import wiretap as t_wiretap  # noqa: E402
 from cueball_tpu_torch import http_server as thttp  # noqa: E402
+from cueball_tpu_torch import profile as tprofile  # noqa: E402
+from cueball_tpu_torch import trace as ttrace  # noqa: E402
 from cueball_tpu_torch.monitor import PoolMonitor  # noqa: E402
 from cueball_tpu_torch.parallel import health as TH  # noqa: E402
 from cueball_tpu_torch.parallel.sampler import FleetSampler  # noqa: E402
@@ -127,6 +130,45 @@ def test_kang_errors_match_jax(method, path):
     assert thttp.route(method, path) == jhttp._route(method, path, None)
 
 
+@pytest.mark.parametrize('query', ['', '?phase=lease', '?phase=other',
+                                   '?phase=nope', '?phase=', '?limit=1',
+                                   '?phase=lease&bogus=1'])
+def test_kang_profile_matches_jax(query):
+    """With both profilers idle, every answer (the empty flamegraph, and
+    the 400s for an unknown phase or parameter) is the JAX route's, byte
+    for byte."""
+    for prof, trace in ((jprofile, mod_trace), (tprofile, ttrace)):
+        prof.stop_sampler()
+        prof.reset_samples()
+        trace.disable_tracing()
+    want = jhttp._route('GET', '/kang/profile' + query, None)
+    assert thttp.route('GET', '/kang/profile' + query) == want
+    assert want[0] == (200 if query in ('', '?phase=lease', '?phase=other')
+                       else 400)
+
+
+def test_kang_shards_matches_jax():
+    """One started inline router in each package, owning the same
+    pools: ``/kang/shards`` gives the same body."""
+    from test_torch_shard import JAX, PORT, started, stopped
+
+    async def t():
+        names = ['svc.ks%d' % i for i in range(4)]
+        routers = [await started(pkg, names, shards=3, backend='inline')
+                   for pkg in (JAX, PORT)]
+        try:
+            want = jhttp._route('GET', '/kang/shards', None)
+            got = thttp.route('GET', '/kang/shards')
+        finally:
+            for r in routers:
+                await stopped(r)
+        assert got == want and want[0] == 200
+        (only,) = json.loads(got[2])['routers']
+        assert sorted(only['pools']) == names and only['nshards'] == 3
+        assert thttp.route('GET', '/kang/shards')[2] == b'{"routers": []}'
+    run_async(t())
+
+
 def test_kang_fleet_shows_the_attached_sampler():
     mon = PoolMonitor()
     for i in range(3):
@@ -216,9 +258,9 @@ def test_health_record_has_the_failure_dump_shape(matched_monitors):
 
 
 def test_debug_handler_chains_to_the_jax_handler(caplog):
-    """One SIGUSR2 runs the port's dump and the JAX package's handler
-    it was installed over (each signal toggles that package's stack
-    capture; the second toggles it back)."""
+    """One SIGUSR2 runs the port's handler and the JAX package's handler
+    it was installed over: each toggles its own package's stack capture
+    (the second signal toggles both back) and logs its own dump."""
     jprev = jdebug.install_debug_handler(signal.SIGUSR2)
     prev = debug.install_debug_handler(signal.SIGUSR2)
     try:
@@ -226,16 +268,20 @@ def test_debug_handler_chains_to_the_jax_handler(caplog):
         with caplog.at_level(logging.WARNING, logger='cueball.debug'):
             os.kill(os.getpid(), signal.SIGUSR2)
             assert mod_utils.stack_traces_enabled()
+            assert t_utils.stack_traces_enabled()
             os.kill(os.getpid(), signal.SIGUSR2)
             assert not mod_utils.stack_traces_enabled()
+            assert not t_utils.stack_traces_enabled()
     finally:
         debug.uninstall_debug_handler(prev, signal.SIGUSR2)
         jdebug.uninstall_debug_handler(jprev, signal.SIGUSR2)
         mod_utils.disable_stack_traces()
+        t_utils.disable_stack_traces()
     assert signal.getsignal(signal.SIGUSR2) == jprev
-    messages = [r.getMessage() for r in caplog.records]
-    assert sum('port fleet runtime' in m for m in messages) == 2
-    assert sum('stack traces now' in m for m in messages) == 2
+    by_package = [os.path.basename(os.path.dirname(r.pathname))
+                  for r in caplog.records
+                  if 'stack traces now' in r.getMessage()]
+    assert by_package == ['cueball_tpu_torch', 'cueball_tpu'] * 2
 
 
 @pytest.fixture
