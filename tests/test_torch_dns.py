@@ -628,7 +628,10 @@ def test_ctor_validation_matches_jax(bad):
 def test_full_stack_over_udp_matches_jax():
     """Each package's ``DNSResolver`` over its real ``DnsClient`` and a
     UDP socket, against one nameserver on 127.0.0.1 serving the port's
-    ``SimZone``: the same backends, keys and queries."""
+    ``SimZone``: the same backends, keys and queries. Each package reads
+    a netsim clock that never moves, so the TTL arithmetic behind the
+    ``max-sleep`` counter does not see the real milliseconds the run
+    takes."""
     zone = t_netsim.SimZone()
     zone.add_srv_backend('_svc._tcp.svc.test', 'backend.svc.test', 8080,
                          '10.1.2.3', ttl=3600, addr_ttl=3600)
@@ -638,6 +641,7 @@ def test_full_stack_over_udp_matches_jax():
     def run(pkg):
         saved = pkg.dns.have_global_v6
         pkg.dns.have_global_v6 = lambda: False
+        saved_clock = pkg.utils.set_clock(pkg.netsim.VirtualClock())
 
         async def main():
             loop = asyncio.get_running_loop()
@@ -665,6 +669,7 @@ def test_full_stack_over_udp_matches_jax():
         try:
             return asyncio.run(asyncio.wait_for(main(), 20))
         finally:
+            pkg.utils.set_clock(saved_clock)
             pkg.dns.have_global_v6 = saved
 
     want = run(JAX)

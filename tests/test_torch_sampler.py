@@ -26,6 +26,7 @@ jax = pytest.importorskip('jax')
 torch = pytest.importorskip('torch')
 
 from cueball_tpu import metrics as mod_metrics  # noqa: E402
+from cueball_tpu import netsim as j_netsim  # noqa: E402
 from cueball_tpu import trace as mod_trace  # noqa: E402
 from cueball_tpu import utils as mod_utils  # noqa: E402
 from cueball_tpu.monitor import PoolMonitor  # noqa: E402
@@ -458,10 +459,16 @@ def assert_records_agree(got, want, tag):
     return len(edge_rows)
 
 
-def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
+def test_lockstep_with_jax_sampler_control_and_health():
     """A JAX FleetSampler and a port one over the same live pools, with
     control and health on, under load and with a clock rebase mid-run:
-    every tick's records agree."""
+    every tick's records agree. The pools' timers and both samplers run
+    on netsim's virtual loop and clock, advanced by hand, so the real
+    seconds that JAX spends compiling expire no queued claim. The jump
+    at tick 12 expires the first queue, and a second one is queued
+    after it."""
+    clock = j_netsim.VirtualClock(start=1000.0)
+
     async def t():
         ctx = Ctx()
         pool_a, pool_b, pool_c = await connected_pools(ctx, [
@@ -477,9 +484,6 @@ def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
         want_s = jsampler.FleetSampler(dict(opts))
         got_s = FleetSampler(dict(opts, device=CPU, host=jax_host()))
         rng = np.random.default_rng(31)
-        # The first JAX tick compiles for seconds of real time, and the
-        # pools shed queued claims on real time: tick once before the
-        # load starts.
         edge_rows = assert_records_agree(got_s.sample_once(),
                                          want_s.sample_once(), 'warm')
         held = []
@@ -490,7 +494,11 @@ def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
         try:
             for tick in range(24):
                 await settle(2)
-                frozen_clock.advance(20 if tick != 12 else jsampler.EPOCH_LIMIT)
+                # 50 ms ticks take pool_a's queued claims past its
+                # 300 ms CoDel target, and the laws to a drop, before
+                # the jump at tick 12 expires their 3 s claim timeout.
+                step_ms = 50 if tick != 12 else jsampler.EPOCH_LIMIT
+                clock.advance(step_ms / 1000.0)
                 # Attributed claims for the health planes, offered to
                 # every registered sink as a tracer would.
                 for _ in range(30):
@@ -504,6 +512,10 @@ def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
                 want = want_s.sample_once()
                 got = got_s.sample_once()
                 edge_rows += assert_records_agree(got, want, tick)
+                if tick == 12:
+                    # The jump expired the queue: load it again, so
+                    # the laws run over a loaded queue after the rebase.
+                    queued += [claim(pool_a) for _ in range(3)]
                 if tick % 7 == 3 and held:
                     hdl, _ = held.pop()
                     hdl.release()
@@ -512,6 +524,10 @@ def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
             # The run exercised the laws and both planes.
             hist = got_s.fs_history
             assert any(r['pools'][pool_a.p_uuid]['drop'] for r in hist)
+            # ... and over the queue loaded after the rebase (a record's
+            # 'tick' counts the warm tick, so loop tick 12 is record 14).
+            assert any(r['pools'][pool_a.p_uuid]['drop']
+                       for r in hist if r['tick'] > 12 + 2)
             assert hist[-1]['control']['rejected'] == 3   # past warm-up
             assert 'ls-c1' in hist[-1]['health']['gray']
             # Steady integer loads put many rows' filtered load within
@@ -526,12 +542,14 @@ def test_lockstep_with_jax_sampler_control_and_health(frozen_clock):
             for fut, waiter in queued:
                 if not fut.done():
                     waiter.cancel()
+                elif not fut.cancelled():
+                    fut.exception()   # a claim timed out on the clock
             for hdl, _ in held:
                 hdl.release()
             for p in (pool_a, pool_b, pool_c):
                 p.stop()
         await settle(30)
-    run_async(t())
+    j_netsim.run(t(), clock=clock)
 
 
 # -- transfer cache, failure recovery, defaults ------------------------------
