@@ -20,14 +20,34 @@ package's thread or inline router in the tests.
 A pass awaits the shards' jobs one after another, as the JAX router
 does (``router.py:516-521``, ``:631-636``), and raises the first
 failure.
+
+Tracing. Three ``torch.profiler.record_function`` ranges mark a pass:
+:data:`PASS_RANGE` on the router's loop around the whole pass,
+:data:`JOB_RANGE` on the shard's loop around each shard's job, and
+:data:`REDUCE_RANGE` around the shard -> host reduction. (A profiler
+records another thread's ranges only when it traces every thread.)
+The runtime also counts, for the router's metrics, the passes run by
+kind (``rt_passes``) and, per shard, the milliseconds of its jobs
+(``rt_job_ms``) and of its hops (``rt_hop_ms``): from the submit on the
+router's loop to the job's start, plus from the job's end to the
+router's loop resuming.
 """
 
 from __future__ import annotations
+
+import collections
+import time
+
+from torch.profiler import record_function
 
 from ..errors import CueBallError
 from ..parallel.control import reduce_control
 from ..parallel.health import reduce_health
 from ..parallel.sampler import FleetSampler, reduce_fleet
+
+PASS_RANGE = 'cueball.router.pass'
+JOB_RANGE = 'cueball.router.shard_job'
+REDUCE_RANGE = 'cueball.router.reduce'
 
 _SPAWN_REFUSALS = {
     'sample_fleet': 'sample_fleet is not available on the spawn backend; '
@@ -55,6 +75,9 @@ class FleetRuntime:
         self.rt_router = router
         self.rt_options = dict(options or {})
         self.rt_samplers: dict[int, FleetSampler] = {}
+        self.rt_passes: collections.Counter = collections.Counter()
+        self.rt_job_ms: dict[int, float] = {}
+        self.rt_hop_ms: dict[int, float] = {}
 
     # -- per-shard jobs (each runs on its shard's loop) -----------------
 
@@ -87,44 +110,71 @@ class FleetRuntime:
         return [sid for sid, fsm in sorted(self.rt_router.fr_fsms.items())
                 if fsm.is_in_state('running')]
 
-    async def _pass(self, name: str, launch) -> list:
-        """Await ``launch(sid)`` for each running shard in turn; the
-        shards' records in shard order. A shard's failure, or a shard
-        that returns no record, fails the pass."""
+    @staticmethod
+    def _timed(job, shard_id: int) -> tuple:
+        """Run on the shard's loop: ``job(shard_id)`` in its range, with
+        its start and end on the host's monotonic clock."""
+        with record_function(JOB_RANGE):
+            start = time.perf_counter()
+            record = job(shard_id)
+            end = time.perf_counter()
+        return record, start, end
+
+    async def _pass(self, name: str, run, job, reduce):
+        """Run ``job`` on each running shard in turn, through ``run(sid,
+        fn, *args)`` (awaitable), and reduce the shards' records in
+        shard order. A shard's failure, or a shard that returns no
+        record, fails the pass."""
         if self.rt_router.fr_backend == 'spawn':
             raise CueBallError(_SPAWN_REFUSALS[name])
-        records = []
-        for sid in self._running():
-            rec = await launch(sid)
-            if rec is None:
-                raise CueBallError('%s: shard %d returned no record'
-                                   % (name, sid))
-            records.append(rec)
-        return records
+        with record_function(PASS_RANGE):
+            records = []
+            for sid in self._running():
+                submit = time.perf_counter()
+                rec, start, end = await run(sid, self._timed, job, sid)
+                resumed = time.perf_counter()
+                self.rt_job_ms[sid] = (self.rt_job_ms.get(sid, 0.0)
+                                       + (end - start) * 1e3)
+                self.rt_hop_ms[sid] = (self.rt_hop_ms.get(sid, 0.0)
+                                       + (start - submit + resumed - end)
+                                       * 1e3)
+                if rec is None:
+                    raise CueBallError('%s: shard %d returned no record'
+                                       % (name, sid))
+                records.append(rec)
+            with record_function(REDUCE_RANGE):
+                out = reduce(records)
+        self.rt_passes[name.partition('_')[0]] += 1
+        return out
+
+    def _run_worker(self, sid: int, fn, *args):
+        # The sample pass counts no submit, as the JAX router's.
+        return self.rt_router.fr_workers[sid].run(fn, *args)
+
+    def _run_on(self, sid: int, fn, *args):
+        return self.rt_router.run_on(sid, fn, *args)
 
     async def sample_fleet(self, mesh=None, mesh_axes=('host', 'chip')):
         """One sampler tick on every running shard, then the shard ->
         host reduction (and host -> mesh when ``mesh`` is given)."""
-        router = self.rt_router
-        records = await self._pass('sample_fleet', lambda sid: (
-            router.fr_workers[sid].run(self._sample_shard, sid)))
-        return reduce_fleet(records, mesh=mesh, mesh_axes=mesh_axes)
+        return await self._pass(
+            'sample_fleet', self._run_worker, self._sample_shard,
+            lambda records: reduce_fleet(records, mesh=mesh,
+                                         mesh_axes=mesh_axes))
 
     async def control_fleet(self) -> dict:
         """One control-plane pass: each running shard's sampler ticks
         with control on and applies its decisions on its own loop; the
         per-shard summaries reduce shard -> host."""
-        records = await self._pass('control_fleet', lambda sid: (
-            self.rt_router.run_on(sid, self._control_shard, sid)))
-        return reduce_control(records)
+        return await self._pass('control_fleet', self._run_on,
+                                self._control_shard, reduce_control)
 
     async def health_fleet(self) -> dict:
         """One health pass: each running shard's sampler ticks with
         health on; the verdict records merge with ``reduce_health``
         (gray sets union, burn rates take the worst shard)."""
-        records = await self._pass('health_fleet', lambda sid: (
-            self.rt_router.run_on(sid, self._health_shard, sid)))
-        return reduce_health(records)
+        return await self._pass('health_fleet', self._run_on,
+                                self._health_shard, reduce_health)
 
     def health_snapshot(self) -> dict | None:
         """The merged verdicts of the shards whose sampler runs the

@@ -484,6 +484,18 @@ class FleetRouter:
                          'Connection pools owned by the shard')
         nsub = c.gauge('cueball_shard_submits',
                        'Jobs/claims routed to the shard since start')
+        # The runtime's pass counters. The cueball_shard_* gauges above
+        # are the JAX router's own, line for line; these are the port's.
+        job_ms = c.gauge('cueball_router_shard_job_ms',
+                         'Milliseconds of the fleet pass jobs run on the '
+                         'shard since start')
+        hop_ms = c.gauge('cueball_router_shard_hop_ms',
+                         'Milliseconds of the fleet pass jobs\' hops to '
+                         'and from the shard since start')
+        passes = c.gauge('cueball_router_passes',
+                         'Fleet passes run over the shards since start, '
+                         'by kind')
+        rt = self.fr_runtime
         counts = {sid: 0 for sid in self.fr_fsms}
         for rec in self.fr_pools.values():
             counts[rec.shard_id] = counts.get(rec.shard_id, 0) + 1
@@ -492,6 +504,10 @@ class FleetRouter:
             up.set(1.0 if fsm.is_in_state('running') else 0.0, labels)
             npools.set(float(counts.get(sid, 0)), labels)
             nsub.set(float(self.fr_submits.get(sid, 0)), labels)
+            job_ms.set(rt.rt_job_ms.get(sid, 0.0), labels)
+            hop_ms.set(rt.rt_hop_ms.get(sid, 0.0), labels)
+        for kind in ('sample', 'control', 'health'):
+            passes.set(float(rt.rt_passes[kind]), {'kind': kind})
 
     async def control_fleet(self):
         """One control-plane pass: each running shard runs the fused
