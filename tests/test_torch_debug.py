@@ -31,6 +31,7 @@ from cueball_tpu import monitor as j_monitor  # noqa: E402
 from cueball_tpu import profile as j_profile  # noqa: E402
 from cueball_tpu import shard as j_shard  # noqa: E402
 from cueball_tpu import utils as j_utils  # noqa: E402
+from cueball_tpu import wiretap as j_wiretap  # noqa: E402
 from cueball_tpu.parallel import health as j_health  # noqa: E402
 from cueball_tpu_torch import debug as t_debug  # noqa: E402
 from cueball_tpu_torch import events as t_events  # noqa: E402
@@ -53,13 +54,18 @@ RECOVERY = {'default': {'timeout': 1000, 'retries': 1, 'delay': 50}}
 
 @pytest.fixture
 def alone():
-    """Each package's monitor, health monitors and the port's samplers
-    emptied for the test and put back after; both profilers stopped."""
+    """Each package's monitor, health monitors, wire ledger and loop-lag
+    samplers, and the port's samplers, emptied for the test and put back
+    after; both profilers stopped. The dump prints the wire ledger's
+    section when either is set, and a test that ran earlier in the same
+    process (a bench stage, say) may have left them set in one package."""
     mons = (j_monitor.pool_monitor, t_monitor.pool_monitor)
     saved = [(m.pm_pools.copy(), m.pm_sets.copy(), m.pm_dns_res.copy())
              for m in mons]
     monitors = (j_health._MONITORS[:], t_health._MONITORS[:])
     samplers = dict(t_sampler._SAMPLERS)
+    wires = [(w, w._LEDGER, dict(w._lag_samplers), w._lag_disabled_reason)
+             for w in (j_wiretap, t_wiretap)]
     for m in mons:
         m.pm_pools.clear()
         m.pm_sets.clear()
@@ -67,6 +73,10 @@ def alone():
     j_health._MONITORS.clear()
     t_health._MONITORS.clear()
     t_sampler._SAMPLERS.clear()
+    for w, *_ in wires:
+        w._LEDGER = None
+        w._lag_samplers.clear()
+        w._lag_disabled_reason = None
     try:
         yield
     finally:
@@ -77,6 +87,11 @@ def alone():
         j_health._MONITORS[:] = monitors[0]
         t_health._MONITORS[:] = monitors[1]
         t_sampler._SAMPLERS.update(samplers)
+        for w, ledger, lag, reason in wires:
+            w._LEDGER = ledger
+            w._lag_samplers.clear()
+            w._lag_samplers.update(lag)
+            w._lag_disabled_reason = reason
         for prof in (j_profile, t_profile):
             prof.stop_sampler()
             prof.reset_samples()
