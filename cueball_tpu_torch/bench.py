@@ -48,14 +48,13 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from . import host
+from . import host, utils
 from ._device import resolve_device
 from .entry import SyntheticPool, example_inputs
 from .monitor import PoolMonitor
@@ -143,11 +142,11 @@ def _seconds(fn, iters: int, dev: torch.device) -> float:
     """Seconds for ``iters`` calls of ``fn``, from a synchronized device
     to a synchronized device."""
     _sync(dev)
-    t0 = time.perf_counter()
+    t0 = utils.perf_seconds()
     for _ in range(iters):
         fn()
     _sync(dev)
-    return time.perf_counter() - t0
+    return utils.perf_seconds() - t0
 
 
 def default_is_kernel(dev: torch.device) -> bool:
@@ -270,10 +269,10 @@ def _measure_tick_cost(n: int, dev, cap) -> tuple:
         gather_us = _seconds(gather, g_iters, dev) / g_iters * 1e6
 
         now = host.current_millis()
-        t0 = time.perf_counter()
+        t0 = utils.perf_seconds()
         for p in fleet:
             FleetSampler.gather_pool(p, now)
-        gather_full_us = (time.perf_counter() - t0) * 1e6
+        gather_full_us = (utils.perf_seconds() - t0) * 1e6
     finally:
         s.stop()
     return tick_us, gather_us, gather_full_us

@@ -13,14 +13,14 @@
 - :class:`SamplerWorkload` — such a fleet with CoDel queues, waiting
   claims, churning loads and attributed claims: the sampler workload
   ``chip_smoke.py`` checks and ``profile_live`` profiles.
-- :class:`ShardedWorkload` — that workload split over shard loop
-  threads, with the router surface ``shard.FleetRuntime`` drives.
+- :class:`ShardedWorkload` — that workload split over the router's
+  shard loop threads, with the router surface ``shard.FleetRuntime``
+  drives.
 """
 
 from __future__ import annotations
 
 import asyncio
-import threading
 import types
 
 import numpy as np
@@ -36,6 +36,7 @@ from .parallel.telemetry import (FleetInputs, _scan_shardings, fleet_init,
                                  make_live_step, make_sharded_scan,
                                  make_sharded_step, make_shardmap_step,
                                  shard_inputs, shard_state, shard_window)
+from .shard.worker import ShardFSM, ThreadWorker
 
 
 def example_inputs(n_pools: int, taps: int = 128, seed: int = 0,
@@ -321,67 +322,23 @@ class SamplerWorkload:
                 sink.observe(self.keys[b], ms if ok else None, ms + 1.0, ok)
 
 
-class _ShardLoop:
-    """One shard's thread running its own asyncio loop (the worker of a
-    thread-backed router): ``run(job, *args)`` awaits ``job(*args)`` on
-    that loop, awaiting it there too if it is a coroutine."""
-
-    def __init__(self, shard_id: int):
-        self.loop = asyncio.new_event_loop()
-        self.thread = threading.Thread(
-            target=self._main, name='cueball-shard-%d' % shard_id,
-            daemon=True)
-        self.thread.start()
-
-    def _main(self) -> None:
-        asyncio.set_event_loop(self.loop)
-        self.loop.run_forever()
-
-    def alive(self) -> bool:
-        return self.thread.is_alive() and not self.loop.is_closed()
-
-    def is_in_state(self, state: str) -> bool:
-        """The shard FSM's question: only 'running' is answered yes,
-        while the loop thread lives."""
-        return state == 'running' and self.alive()
-
-    @staticmethod
-    async def _call(job, args):
-        res = job(*args)
-        if asyncio.iscoroutine(res):
-            res = await res
-        return res
-
-    async def run(self, job, *args):
-        if not self.alive():
-            raise RuntimeError('shard loop is not running')
-        return await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
-            self._call(job, args), self.loop))
-
-    def close(self, timeout_s: float = 10.0) -> None:
-        if self.loop.is_closed():
-            return
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self.thread.join(timeout_s)
-        if self.thread.is_alive():
-            raise RuntimeError('shard loop thread did not stop')
-        self.loop.close()
-
-
 class ShardedWorkload(SamplerWorkload):
     """A :class:`SamplerWorkload` of ``n_shards * pools_per_shard``
-    pools split over ``n_shards`` loop threads: the card's stand-in for
-    a thread-backed ``cueball_tpu.shard.FleetRouter``, as
-    ``SamplerWorkload`` stands in for a pool monitor. Pool ``i`` is
-    stamped ``p_shard = i // pools_per_shard``, as the router stamps the
-    pools a shard owns.
+    pools split over ``n_shards`` shard loop threads, each a
+    ``shard.worker.ThreadWorker`` with its ``ShardFSM``: the pieces of
+    a thread-backed ``shard.FleetRouter``. Pool ``i`` is stamped
+    ``p_shard = i // pools_per_shard``, as the router stamps the pools a
+    shard owns.
 
     It has the router surface ``shard.FleetRuntime`` reads:
     ``fr_backend`` ('thread'), ``fr_fsms[sid].is_in_state('running')``,
-    ``fr_workers[sid].run(job, *args)`` and ``run_on(sid, job, *args)``.
-    It routes no claims and has no hash ring: it is a workload, not a
-    router. :meth:`advance` is ``SamplerWorkload.advance`` (call it
-    between passes); :meth:`close` stops the loop threads."""
+    ``fr_workers[sid].run(job, *args)`` and ``run_on(sid, job, *args)``,
+    each awaitable from any loop. It routes no claims and has no hash
+    ring: it is a workload, not a router. The shards start when it is
+    built and stop in :meth:`close`, both on a loop of the workload's
+    own that takes the workers' signals and the FSMs' timers, so build
+    and close it outside a running loop. :meth:`advance` is
+    ``SamplerWorkload.advance`` (call it between passes)."""
 
     fr_backend = 'thread'
 
@@ -390,15 +347,40 @@ class ShardedWorkload(SamplerWorkload):
         super().__init__(n_shards * pools_per_shard, n_backends, seed)
         for i, pool in enumerate(self.pools):
             pool.p_shard = i // pools_per_shard
-        self.fr_workers = {sid: _ShardLoop(sid) for sid in range(n_shards)}
-        self.fr_fsms = dict(self.fr_workers)
+        self._loop = asyncio.new_event_loop()
+        self.fr_workers = {sid: ThreadWorker(sid, self._loop)
+                           for sid in range(n_shards)}
+        self.fr_fsms = {sid: ShardFSM(worker)
+                        for sid, worker in self.fr_workers.items()}
+        self._loop.run_until_complete(self._settle(ShardFSM.start,
+                                                   'running'))
+
+    async def _settle(self, assert_, state: str) -> None:
+        """``assert_(fsm)`` on every shard's FSM, then wait until each
+        is in ``state`` or has failed (each state's own timeout bounds
+        the wait); a failed shard raises."""
+        for fsm in self.fr_fsms.values():
+            assert_(fsm)
+        while not all(fsm.get_state() in (state, 'failed')
+                      for fsm in self.fr_fsms.values()):
+            await asyncio.sleep(0.005)
+        failed = [sid for sid, fsm in self.fr_fsms.items()
+                  if not fsm.is_in_state(state)]
+        if failed:
+            raise RuntimeError('shards %r did not reach %r'
+                               % (failed, state))
 
     async def run_on(self, shard_id: int, job, *args):
-        worker = self.fr_workers[shard_id]
-        if not worker.is_in_state('running'):
+        if not self.fr_fsms[shard_id].is_in_state('running'):
             raise RuntimeError('shard %d is not running' % shard_id)
-        return await worker.run(job, *args)
+        return await self.fr_workers[shard_id].run(job, *args)
 
     def close(self) -> None:
-        for worker in self.fr_workers.values():
-            worker.close()
+        """Stop every shard's loop thread; a second call does nothing."""
+        if self._loop.is_closed():
+            return
+        try:
+            self._loop.run_until_complete(self._settle(ShardFSM.stop,
+                                                       'stopped'))
+        finally:
+            self._loop.close()

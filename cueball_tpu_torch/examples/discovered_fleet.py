@@ -38,12 +38,12 @@ import argparse
 import asyncio
 import json
 import random
-import time
 
 from .. import dns_resolver as mod_dns_resolver
 from .. import host
 from .. import monitor as mod_monitor
 from .. import trace as mod_trace
+from .. import utils
 from .._device import resolve_device
 from ..entry import frozen_host
 from ..netsim.dns import SimZone, encode_response, parse_query
@@ -150,12 +150,12 @@ class pinned_v4_only:
 async def wait_until(cond, timeout_s: float, what: str) -> float:
     """Poll ``cond`` every 5 ms; the seconds it took, or raise after
     ``timeout_s``."""
-    t0 = time.perf_counter()
+    t0 = utils.perf_seconds()
     while not cond():
-        if time.perf_counter() - t0 > timeout_s:
+        if utils.perf_seconds() - t0 > timeout_s:
             raise TimeoutError('%s: not within %.1f s' % (what, timeout_s))
         await asyncio.sleep(0.005)
-    return time.perf_counter() - t0
+    return utils.perf_seconds() - t0
 
 
 async def run(device=None, twin_device='cpu', services: int = SERVICES,
@@ -221,9 +221,9 @@ async def _run(dev, twin_device, services, claims, swap_at, concurrency,
             instant[0] = host.current_millis()
             if twin is not None:
                 twin_records.append(twin.sample_once())
-            t0 = time.perf_counter()
+            t0 = utils.perf_seconds()
             records.append(sampler.sample_once())
-            tick_s.append(time.perf_counter() - t0)
+            tick_s.append(utils.perf_seconds() - t0)
 
         rng = random.Random(0)
         order = [rng.randrange(services) for _ in range(claims)]
@@ -248,20 +248,20 @@ async def _run(dev, twin_device, services, claims, swap_at, concurrency,
 
         launches = fir.fir_apply_cuda.launches
         tick()                 # health tables join the sinks here
-        t0 = time.perf_counter()
+        t0 = utils.perf_seconds()
         await asyncio.gather(*(worker(k, 0, swap_at)
                                for k in range(concurrency)))
-        claim_s = time.perf_counter() - t0
+        claim_s = utils.perf_seconds() - t0
         answered_before = dict(ns.answered)
         for i in range(services):
             set_targets(zone, i, ports, range(1, TARGETS + 1))
         swap_s = await wait_until(
             lambda: all(old_key in e['removed'] and new_key in e['added']
                         for e in seen), SWAP_TIMEOUT_S, 'the swap')
-        t0 = time.perf_counter()
+        t0 = utils.perf_seconds()
         await asyncio.gather(*(worker(k, swap_at, claims)
                                for k in range(concurrency)))
-        claim_s += time.perf_counter() - t0
+        claim_s += utils.perf_seconds() - t0
         tick()
         launches = fir.fir_apply_cuda.launches - launches
         epoch = sampler.fs_ctrl_last['epoch']

@@ -108,6 +108,7 @@ class MuxClient:
     def __init__(self, resolver, target=3, maximum=4):
         self._conns = {}        # key -> (conn, handle)
         self._rr = itertools.cycle([])
+        self._drains = set()    # the drain tasks still running
         self.cset = ConnectionSet({
             'constructor': MuxConnection,
             'resolver': resolver,
@@ -137,7 +138,9 @@ class MuxClient:
             while conn.in_flight > 0:
                 await asyncio.sleep(0.01)
             handle.release()
-        asyncio.ensure_future(drain())
+        task = asyncio.ensure_future(drain())
+        self._drains.add(task)
+        task.add_done_callback(self._drains.discard)
 
     async def call(self, method, params, timeout=2.0):
         deadline = asyncio.get_running_loop().time() + timeout

@@ -27,12 +27,12 @@ import argparse
 import asyncio
 import json
 import random
-import time
 
 from .. import host
 from .. import monitor as mod_monitor
 from .. import resolver as mod_resolver
 from .. import trace as mod_trace
+from .. import utils
 from .._device import resolve_device
 from ..entry import frozen_host
 from ..ops import fir
@@ -154,9 +154,9 @@ async def run(device=None, twin_device='cpu', pools: int = POOLS,
         instant[0] = host.current_millis()
         if twin is not None:
             twin_records.append(twin.sample_once())
-        t0 = time.perf_counter()
+        t0 = utils.perf_seconds()
         records.append(sampler.sample_once())
-        tick_s.append(time.perf_counter() - t0)
+        tick_s.append(utils.perf_seconds() - t0)
 
     rng = random.Random(0)
     order = [rng.randrange(pools) for _ in range(claims)]
@@ -186,9 +186,9 @@ async def run(device=None, twin_device='cpu', pools: int = POOLS,
             while not p.is_in_state('running'):
                 await asyncio.sleep(0.005)
         tick()                 # health tables join the sinks here
-        t0 = time.perf_counter()
+        t0 = utils.perf_seconds()
         await asyncio.gather(*(worker(k) for k in range(concurrency)))
-        wall_s = time.perf_counter() - t0
+        wall_s = utils.perf_seconds() - t0
         tick()
         launches = fir.fir_apply_cuda.launches - launches
         epoch = sampler.fs_ctrl_last['epoch']

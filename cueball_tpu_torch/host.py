@@ -21,9 +21,17 @@ import threading
 import types
 
 from . import pool, trace, utils, wiretap
-from .wiretap import (DEFAULT_LAG_INTERVAL_MS, DEFAULT_LAG_RING,  # noqa: F401
+from .wiretap import (DEFAULT_LAG_INTERVAL_MS, DEFAULT_LAG_RING,
                       _lag_samplers, loop_lag_p99_us, loop_lag_stats,
                       start_loop_lag_sampler, stop_loop_lag_sampler)
+
+__all__ = [
+    'seam_over', 'current_millis', 'backend_index', 'backend_key_for',
+    'add_backend_sink', 'remove_backend_sink', 'backend_sinks',
+    'active_collector', 'drain_native',
+    'DEFAULT_LAG_INTERVAL_MS', 'DEFAULT_LAG_RING', 'loop_lag_p99_us',
+    'loop_lag_stats', 'start_loop_lag_sampler', 'stop_loop_lag_sampler',
+]
 
 
 # -- the seam -----------------------------------------------------------------

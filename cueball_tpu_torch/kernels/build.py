@@ -24,8 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from .. import utils
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / 'csrc'
@@ -96,7 +97,7 @@ def _build_all(names) -> dict:
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, result = {}, {}
-    start = time.perf_counter()
+    start = utils.perf_seconds()
     for name in names:
         path = library_path(name)
         if path.exists():
@@ -118,7 +119,7 @@ def _build_all(names) -> dict:
             continue
         os.replace(tmp, path)
         result[name] = {'path': str(path),
-                        'seconds': time.perf_counter() - start, 'log': log}
+                        'seconds': utils.perf_seconds() - start, 'log': log}
     if failed:
         raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     return result

@@ -13,8 +13,8 @@ runs its passes through one, whose samplers are the router's
 *args)`` (awaitable; the sample pass uses it, as the JAX router does,
 without counting a submit) and ``run_on(sid, job, *args)`` (awaitable;
 the control and health passes). So a runtime also runs over
-``entry.ShardedWorkload``, which stands in for this package's router
-where a workload of duck-typed pools is wanted, and over the JAX
+``entry.ShardedWorkload``, synthetic pools on this package's own
+``ThreadWorker`` shards, each with its ``ShardFSM``, and over the JAX
 package's thread or inline router in the tests.
 
 A pass awaits the shards' jobs one after another, as the JAX router
@@ -36,10 +36,10 @@ router's loop resuming.
 from __future__ import annotations
 
 import collections
-import time
 
 from torch.profiler import record_function
 
+from .. import utils
 from ..errors import CueBallError
 from ..parallel.control import reduce_control
 from ..parallel.health import reduce_health
@@ -67,9 +67,9 @@ class FleetRuntime:
     a deployment of the JAX package's pools passes that package's),
     ``host`` (there, ``host.seam_over(...)``), ``device`` (default CUDA,
     which must exist), ``objectives``, ``interval``, ``control``,
-    ``health``, ``mesh``. As on the JAX router, a shard's sampler is made by its
-    first pass, and a control or health pass turns that plane on for
-    good."""
+    ``health``, ``mesh``. As on the JAX router, a shard's sampler is
+    made by its first pass, and a control or health pass turns that
+    plane on for good."""
 
     def __init__(self, router, options: dict | None = None):
         self.rt_router = router
@@ -115,9 +115,9 @@ class FleetRuntime:
         """Run on the shard's loop: ``job(shard_id)`` in its range, with
         its start and end on the host's monotonic clock."""
         with record_function(JOB_RANGE):
-            start = time.perf_counter()
+            start = utils.perf_seconds()
             record = job(shard_id)
-            end = time.perf_counter()
+            end = utils.perf_seconds()
         return record, start, end
 
     async def _pass(self, name: str, run, job, reduce):
@@ -130,9 +130,9 @@ class FleetRuntime:
         with record_function(PASS_RANGE):
             records = []
             for sid in self._running():
-                submit = time.perf_counter()
+                submit = utils.perf_seconds()
                 rec, start, end = await run(sid, self._timed, job, sid)
-                resumed = time.perf_counter()
+                resumed = utils.perf_seconds()
                 self.rt_job_ms[sid] = (self.rt_job_ms.get(sid, 0.0)
                                        + (end - start) * 1e3)
                 self.rt_hop_ms[sid] = (self.rt_hop_ms.get(sid, 0.0)

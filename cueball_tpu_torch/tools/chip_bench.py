@@ -23,7 +23,7 @@ import json
 import subprocess
 import sys
 
-from .. import bench
+from .. import bench, utils
 
 #: The default artifact and probe log, at the root of the checkout.
 ARTIFACT = bench.ROOT / 'BENCH_H100.json'
@@ -40,9 +40,13 @@ _PROBE = ('import torch\n'
           '    print("DEV=%s" % torch.cuda.get_device_name(0))\n')
 
 
+def _utc_now() -> datetime.datetime:
+    return datetime.datetime.fromtimestamp(utils.wall_time(),
+                                           datetime.timezone.utc)
+
+
 def log_line(path, text: str) -> None:
-    stamp = datetime.datetime.now(datetime.timezone.utc).isoformat(
-        timespec='seconds')
+    stamp = _utc_now().isoformat(timespec='seconds')
     with open(path, 'a', encoding='utf-8') as f:
         f.write('- %s %s\n' % (stamp, text))
     print('%s %s' % (stamp, text))
@@ -105,15 +109,16 @@ def main(argv=None) -> int:
                                  ','.join(missing), telem.get('error')))
         return 1
 
-    art = dict(telem, artifact='BENCH_H100', date=datetime.datetime.now(
-        datetime.timezone.utc).isoformat(), protocol=(
-            'cueball_tpu_torch.bench.run_stages: %d-pool fleet; live = '
-            'make_live_step, state fed back (the FleetSampler tick form); '
-            'plain/kernel = fleet_step_plain/fleet_step_cuda on the same '
-            'arguments; scan = fleet_scan over %d ticks; tick_cost = wall '
-            'us per FleetSampler.sample_once over synthetic pools; every '
-            'time from a synchronized card to a synchronized card'
-            % (telem['pools'], bench.SCAN_TICKS)))
+    protocol = (
+        'cueball_tpu_torch.bench.run_stages: %d-pool fleet; live = '
+        'make_live_step, state fed back (the FleetSampler tick form); '
+        'plain/kernel = fleet_step_plain/fleet_step_cuda on the same '
+        'arguments; scan = fleet_scan over %d ticks; tick_cost = wall '
+        'us per FleetSampler.sample_once over synthetic pools; every '
+        'time from a synchronized card to a synchronized card'
+        % (telem['pools'], bench.SCAN_TICKS))
+    art = dict(telem, artifact='BENCH_H100', date=_utc_now().isoformat(),
+               protocol=protocol)
     with open(args.out, 'w', encoding='utf-8') as f:
         json.dump(art, f, indent=1, sort_keys=True)
         f.write('\n')

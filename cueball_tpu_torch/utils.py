@@ -338,6 +338,15 @@ def wall_time() -> float:
     return _clock.wall()
 
 
+def perf_seconds() -> float:
+    """Seconds on the host's high-resolution counter (`time.perf_counter`),
+    the one stopwatch of this package. It never reads the clock seam:
+    it times real work even under a frozen or virtual clock, as the
+    shard jobs' and hops' milliseconds of a router's fleet passes are
+    read while the benchmark holds the host clock still."""
+    return time.perf_counter()
+
+
 def shuffle(array: list) -> list:
     """In-place Fisher-Yates shuffle (reference lib/utils.js:207-217)."""
     i = len(array)
