@@ -30,7 +30,8 @@ leaves replicate and which split over the pools axis, and every mesh
 form and placement derives from it.
 
 Actuation is on the host: :func:`apply_decisions` offers each pool its
-row's decision through ``apply_control_decision``.
+row's decision through ``apply_control_decision``, walking a
+:class:`RowPools`: the sampler hands it its cached roster's warm rows.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from __future__ import annotations
 import functools
 import re
 import typing
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -47,7 +49,7 @@ from .._device import resolve_device
 from ..codel import CODEL_TARGET_MAX, CODEL_TARGET_MIN
 from .mesh import Mesh, Reducer, shard_tree, tree_map_with_path
 
-__all__ = ['ControlInputs', 'ControlState', 'apply_decisions',
+__all__ = ['ControlInputs', 'ControlState', 'RowPools', 'apply_decisions',
            'control_init', 'control_inputs', 'control_specs',
            'control_step', 'make_control_step',
            'make_shardmap_control_step', 'match_partition_rules',
@@ -317,38 +319,79 @@ def _host(x):
     return np.asarray(x)
 
 
+class RowPools(Mapping):
+    """A read-only row -> pool mapping that also holds the offer's
+    columns: the rows whose pools take decisions (an int64 array, in
+    the mapping's order), those pools' bound
+    ``apply_control_decision``, and how many pools have none. ``apply``
+    gives each pool's entry point (``None`` where it has none) when the
+    caller bound them already; by default they are looked up here. The
+    sampler builds one per roster and warm set and reuses it while
+    neither changes."""
+
+    __slots__ = ('rp_map', 'rp_apply_rows', 'rp_apply', 'rp_skipped')
+
+    def __init__(self, pools_by_row: Mapping, apply: list | None = None):
+        pools = list(pools_by_row.values())
+        if apply is None:
+            apply = [getattr(p, 'apply_control_decision', None)
+                     for p in pools]
+        has = np.fromiter((a is not None for a in apply), bool, len(apply))
+        self.rp_map = dict(pools_by_row)
+        self.rp_apply_rows = np.fromiter(pools_by_row, np.int64,
+                                         len(pools))[has]
+        self.rp_apply = [a for a in apply if a is not None]
+        self.rp_skipped = len(apply) - len(self.rp_apply)
+
+    def __len__(self):
+        return len(self.rp_map)
+
+    def __iter__(self):
+        return iter(self.rp_map)
+
+    def __getitem__(self, row):
+        return self.rp_map[row]
+
+
 def apply_decisions(pools_by_row, decisions, at_ms=None,
                     health=None) -> dict:
     """Apply one step's decision columns to live pools.
 
-    ``pools_by_row`` maps row index -> pool (the sampler's
-    ``fs_row_pool``); ``decisions`` is the step's decision dict (device
-    tensors or host arrays). Every pool is offered its row's decision
-    through ``apply_control_decision``, the guarded API that validates
-    the epoch and every field before mutating anything. Pools without
-    the API are skipped. ``health`` (an optional fleet health citation)
-    is forwarded alongside. Returns
+    ``pools_by_row`` maps row index -> pool (the sampler passes a
+    :class:`RowPools` of its warm rows; any other mapping is read into
+    one); ``decisions`` is the step's decision dict (device tensors or
+    host arrays). Every pool is offered its row's decision through
+    ``apply_control_decision``, the guarded API that validates the
+    epoch and every field before mutating anything, in the mapping's
+    order. Pools without the API are skipped. The offer unboxes one
+    ``tolist`` each of ``codel_target`` and ``plan_spares`` at the rows
+    that take it: a Python float of the float32 target, or None where
+    it is not positive, and a Python int of spares. ``health`` (an
+    optional fleet health citation) is forwarded alongside, and left
+    out of the call when None. Returns
     ``{'applied': n, 'rejected': n, 'skipped': n, 'epoch': e}``."""
-    ct = _host(decisions['codel_target'])
-    sp = _host(decisions['plan_spares'])
+    view = (pools_by_row if isinstance(pools_by_row, RowPools)
+            else RowPools(pools_by_row))
+    rows = view.rp_apply_rows
     epoch = int(_host(decisions['epoch']))
-    extra = {} if health is None else {'health': health}
-    applied = rejected = skipped = 0
-    for row, pool in pools_by_row.items():
-        apply = getattr(pool, 'apply_control_decision', None)
-        if apply is None:
-            skipped += 1
-            continue
-        target = float(ct[row])
-        ok = apply(epoch,
-                   codel_target=target if target > 0.0 else None,
-                   spares=int(sp[row]), at_ms=at_ms, **extra)
+    offers = zip(view.rp_apply,
+                 _host(decisions['codel_target'])[rows].tolist(),
+                 _host(decisions['plan_spares'])[rows].tolist())
+    applied = 0
+    for apply, target, spares in offers:
+        target = target if target > 0.0 else None
+        # Two call sites: a ``**kwargs`` merge per call costs more than
+        # the pool's own entry point.
+        if health is None:
+            ok = apply(epoch, codel_target=target, spares=spares,
+                       at_ms=at_ms)
+        else:
+            ok = apply(epoch, codel_target=target, spares=spares,
+                       at_ms=at_ms, health=health)
         if ok:
             applied += 1
-        else:
-            rejected += 1
-    return {'applied': applied, 'rejected': rejected,
-            'skipped': skipped, 'epoch': epoch}
+    return {'applied': applied, 'rejected': len(rows) - applied,
+            'skipped': view.rp_skipped, 'epoch': epoch}
 
 
 def reduce_control(records) -> dict:

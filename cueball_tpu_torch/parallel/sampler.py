@@ -21,6 +21,16 @@ doubles as the fleet grows); departed pools free their row and the
 `reset` mask clears carried filter/CoDel state when a row is
 reassigned.
 
+The roster: the occupied rows in assignment order, their pools and the
+pools' advisory and control entry points, bound once. It is rebuilt
+only when the row -> pool map changes (``fs_roster_builds`` counts the
+builds; ``snapshot()['roster_builds']``), so a steady tick walks the
+advisories and decisions over cached columns: one ``tolist`` per
+column and a call per warm pool. Each row's ticks since its reset are
+the integer column ``fs_row_ticks``, advanced with one add a tick; a
+row is warm, and offered advisories and decisions, once its count
+reaches ``taps``.
+
 Incremental gather: the per-pool signals live in numpy columns owned
 by the sampler, maintained event-driven. On row assignment the pool
 receives a :class:`TelemetryRowHandle`; the pool calls
@@ -41,6 +51,7 @@ import math
 import threading
 import weakref
 from collections.abc import Mapping
+from itertools import compress
 
 import numpy as np
 import torch
@@ -50,8 +61,8 @@ from .._device import resolve_device, to_host_values
 from ..events import EventEmitter
 from ..monitor import pool_monitor as default_monitor
 from ..ops.codel_batch import CodelState
-from .control import (ControlInputs, apply_decisions, control_init,
-                      make_control_step, shard_control_state)
+from .control import (ControlInputs, RowPools, apply_decisions,
+                      control_init, make_control_step, shard_control_state)
 from .health import HealthMonitor
 from .mesh import Mesh, Reducer, shard_rows, unshard
 from .telemetry import (FleetInputs, FleetState, fleet_init,
@@ -189,6 +200,51 @@ class _TickPools(Mapping):
         }
 
 
+class _Roster:
+    """The sampler's occupied rows as columns, in ``fs_row_pool``'s
+    order (the order the pools are offered): the rows as int64, the
+    pools, each pool's bound ``receive_fleet_advisory`` and
+    ``apply_control_decision`` (or None), a mask of the pools that take
+    advisories, and a frozen uuid -> row map for the tick records.
+    Built when the row -> pool map changes; :meth:`warm` caches the
+    selection of the last warm mask."""
+
+    __slots__ = ('ro_rows', 'ro_pools', 'ro_receive', 'ro_apply',
+                 'ro_has_receive', 'ro_row_map', 'ro_warm_mask', 'ro_warm')
+
+    def __init__(self, row_pool: dict, rows: dict):
+        pools = list(row_pool.values())
+        self.ro_rows = np.fromiter(row_pool, np.int64, len(pools))
+        self.ro_pools = pools
+        self.ro_receive = [getattr(p, 'receive_fleet_advisory', None)
+                           for p in pools]
+        self.ro_apply = [getattr(p, 'apply_control_decision', None)
+                         for p in pools]
+        self.ro_has_receive = np.fromiter(
+            (f is not None for f in self.ro_receive), bool, len(pools))
+        self.ro_row_map = dict(rows)   # never mutated: records share it
+        self.ro_warm_mask = None
+        self.ro_warm = None
+
+    def warm(self, mask: np.ndarray) -> tuple:
+        """For the warm rows ``mask`` selects: the rows whose pools
+        take advisories, their bound ``receive_fleet_advisory``, and a
+        :class:`~.control.RowPools` of every warm row for the control's
+        offer. Reused while the mask stays the same."""
+        last = self.ro_warm_mask
+        if last is None or not np.array_equal(last, mask):
+            take = mask.tolist()
+            advise = mask & self.ro_has_receive
+            self.ro_warm = (
+                self.ro_rows[advise],
+                list(compress(self.ro_receive, advise.tolist())),
+                RowPools(dict(zip(self.ro_rows[mask].tolist(),
+                                  compress(self.ro_pools, take))),
+                         list(compress(self.ro_apply, take))))
+            self.ro_warm_mask = mask
+        return self.ro_warm
+
+
 def _control_inputs(inp: FleetInputs, out: dict) -> ControlInputs:
     """The control step's inputs: the telemetry tick's own device
     tensors and its ``filtered`` output, nothing shipped anew."""
@@ -274,8 +330,11 @@ class FleetSampler:
 
         self.fs_epoch = self.fs_host.current_millis()
         self.fs_rows: dict[str, int] = {}      # pool uuid -> row
-        self.fs_row_ticks: dict[int, int] = {}  # row -> ticks since reset
         self.fs_row_pool: dict[int, object] = {}  # row -> pool (live)
+        # Ticks since each row's reset; -1 on a row never assigned.
+        self.fs_row_ticks = np.full((self.fs_capacity,), -1, np.int64)
+        self.fs_roster: _Roster | None = None  # rebuilt on a map change
+        self.fs_roster_builds = 0
         self.fs_free: list[int] = list(range(self.fs_capacity))  # heap
         self.fs_pending_reset: set[int] = set()
 
@@ -385,6 +444,9 @@ class FleetSampler:
         self.fs_head_ts = np.pad(self.fs_head_ts, (0, pad))
         self.fs_loop_lag = np.pad(self.fs_loop_lag, (0, pad))
         self.fs_active = np.pad(self.fs_active, (0, pad))
+        self.fs_row_ticks = np.pad(self.fs_row_ticks, (0, pad),
+                                   constant_values=-1)
+        self.fs_roster = None
         self.fs_free.extend(range(old, cap))
         heapq.heapify(self.fs_free)
         self.fs_capacity = cap
@@ -393,6 +455,7 @@ class FleetSampler:
         handle = TelemetryRowHandle(row, self.fs_dirty)
         self.fs_handles[row] = handle
         self.fs_row_pool[row] = pool
+        self.fs_roster = None
         attach = getattr(pool, 'telemetry_attach', None)
         if attach is not None:
             attach(handle)
@@ -403,6 +466,7 @@ class FleetSampler:
 
     def _release_row(self, row: int) -> None:
         pool = self.fs_row_pool.pop(row, None)
+        self.fs_roster = None
         handle = self.fs_handles.pop(row, None)
         if handle is not None:
             handle.detach()
@@ -432,6 +496,16 @@ class FleetSampler:
             self.fs_row_ticks[row] = 0
             self.fs_active[row] = True
             self._attach_row(pools[uuid], row)
+
+    def _current_roster(self) -> _Roster:
+        """The roster of the current row -> pool map, built if the map
+        changed since the last build."""
+        roster = self.fs_roster
+        if roster is None:
+            roster = self.fs_roster = _Roster(self.fs_row_pool,
+                                              self.fs_rows)
+            self.fs_roster_builds += 1
+        return roster
 
     # -- gathering -------------------------------------------------------
 
@@ -634,9 +708,9 @@ class FleetSampler:
             # restart the warm-up gates; then let the error propagate.
             self.fs_state = None
             self.fs_input_cache.clear()
-            for row in self.fs_rows.values():
-                self.fs_pending_reset.add(row)
-                self.fs_row_ticks[row] = 0
+            rows = self._current_roster().ro_rows
+            self.fs_pending_reset.update(rows.tolist())
+            self.fs_row_ticks[rows] = 0
             raise
         self.fs_state = new_state
         self.fs_ticks += 1
@@ -648,24 +722,24 @@ class FleetSampler:
             float(self.fs_loop_lag[self.fs_active].max())
             if bool(self.fs_active.any()) else 0.0)
         out_np = self._host_columns(out)
-        per_pool = _TickPools(dict(self.fs_rows), arrays, out_np)
+        roster = self._current_roster()
+        per_pool = _TickPools(roster.ro_row_map, arrays, out_np)
         # Per-row tick counters drive the warm-up gates of the advisory
         # push and the control step: a row's filter starts zeroed on
         # (re)assign and under-reads for its first `taps` ticks.
-        for row in self.fs_row_pool:
-            self.fs_row_ticks[row] = self.fs_row_ticks.get(row, 0) + 1
+        rows = roster.ro_rows
+        ticks = self.fs_row_ticks
+        ticks[rows] += 1
+        advised, receivers, warm = roster.warm(ticks[rows] >= self.fs_taps)
         if self.fs_actuate:
-            for row, pool in self.fs_row_pool.items():
-                if self.fs_row_ticks.get(row, 0) < self.fs_taps:
-                    continue
-                receive = getattr(pool, 'receive_fleet_advisory', None)
-                if receive is not None:
-                    receive(float(out_np['filtered'][row]), abs_now)
+            filtered = out_np['filtered'][advised].tolist()
+            for receive, value in zip(receivers, filtered):
+                receive(value, abs_now)
 
         record = {'tick': self.fs_ticks, 'now_ms': now,
                   'fleet': fleet_np, 'pools': per_pool}
         if self.fs_control:
-            record['control'] = self._control_once(inp, out, abs_now)
+            record['control'] = self._control_once(inp, out, abs_now, warm)
         if self.fs_health:
             record['health'] = self._health_once(abs_now)
         if self.fs_record:
@@ -699,9 +773,11 @@ class FleetSampler:
                                                   self.fs_mesh_axes)
         return self.fs_ctrl_state
 
-    def _control_once(self, inp, out, abs_now: float) -> dict:
+    def _control_once(self, inp, out, abs_now: float,
+                      warm: RowPools) -> dict:
         """Run the control step on the telemetry tick's device tensors
-        and offer the decision columns to the sampled pools. Every
+        and offer the decision columns to the pools of the ``warm``
+        rows: only rows whose FIR window is fully populated. Every
         ControlInputs field is a FleetInputs tensor the tick already
         placed or the telemetry step's own ``filtered`` output; only the
         decision columns come back to the host."""
@@ -722,11 +798,6 @@ class FleetSampler:
         self.fs_ctrl_state = new_state
         dec_np = self._host_columns(decisions)
         fleet_np = self._host_row(fleet)
-        # Warm-up gate: only rows whose FIR window is fully populated
-        # are offered decisions.
-        eligible = {row: pool
-                    for row, pool in self.fs_row_pool.items()
-                    if self.fs_row_ticks.get(row, 0) >= self.fs_taps}
         # Health citation: the verdict the control plane saw when it
         # decided (the health tick runs after control, so the previous
         # tick's).
@@ -739,7 +810,7 @@ class FleetSampler:
                           'gray': list(last['gray']),
                           'burn_fast': last['fleet']['burn_fast'],
                           'burn_slow': last['fleet']['burn_slow']}
-        summary = apply_decisions(eligible, dec_np, at_ms=abs_now,
+        summary = apply_decisions(warm, dec_np, at_ms=abs_now,
                                   health=health)
         record = {'fleet': fleet_np, 'decisions': dec_np,
                   'step_ms': host.current_millis() - t0}
@@ -788,6 +859,13 @@ class FleetSampler:
     # -- snapshot --------------------------------------------------------
 
     def snapshot(self) -> dict:
+        """The sampler as plain data. ``row_ticks`` maps every row ever
+        assigned to its ticks since its last reset, in ascending row
+        order: rows are taken smallest free first, so that is the order
+        of their first assignment, as in the JAX sampler's snapshot.
+        ``roster_builds``, which the JAX sampler's snapshot lacks,
+        counts the roster's builds and stays put on a steady tick."""
+        seen = self.fs_row_ticks >= 0
         mesh = None
         if self.fs_mesh is not None:
             mesh = {'axes': list(self.fs_mesh_axes),
@@ -828,7 +906,9 @@ class FleetSampler:
             'control': control,
             'health': health,
             'mesh': mesh,
-            'row_ticks': dict(self.fs_row_ticks),
+            'row_ticks': dict(zip(np.flatnonzero(seen).tolist(),
+                                  self.fs_row_ticks[seen].tolist())),
+            'roster_builds': self.fs_roster_builds,
             'last_tick_visits': self.fs_tick_visits,
             'latest': latest,
         }

@@ -684,3 +684,220 @@ def test_reduce_fleet_matches_jax():
     assert got['n_pools'] == 4.0 and got['max_sojourn'] == 80.0
     assert got['mean_load'] == pytest.approx(3.0)
     assert tsampler.reduce_fleet([]) == jsampler.reduce_fleet([])
+
+
+# -- the roster: cached rows, warm gate, bound entry points -----------------
+
+class AdvisedPool(FakePool):
+    """A FakePool that takes advisories, and records them."""
+
+    def __init__(self, load=3.0):
+        super().__init__(load)
+        self.advisories = []
+
+    def receive_fleet_advisory(self, filtered, at_ms):
+        self.advisories.append((filtered, at_ms))
+
+
+class DecidedPool(FakePool):
+    """A FakePool that takes control decisions, records each offer and
+    answers ``accept``."""
+
+    def __init__(self, load=3.0, accept=True):
+        super().__init__(load)
+        self.accept = accept
+        self.offers = []
+
+    def apply_control_decision(self, epoch, codel_target=None, spares=None,
+                               at_ms=None, health=None):
+        self.offers.append((epoch, codel_target, spares, at_ms, health))
+        return self.accept
+
+
+class ActuatedPool(DecidedPool, AdvisedPool):
+    """Both entry points."""
+
+
+def actuated_sampler(pools, taps=2, **opts):
+    return make_sampler(pools, taps=taps, actuate=True, control=True,
+                        **opts)
+
+
+def test_roster_rebuilds_only_when_the_row_map_changes(frozen_clock):
+    pools = [ActuatedPool(load=float(i % 5)) for i in range(300)]
+    s = actuated_sampler(pools)
+    mon = s.fs_monitor
+    for _ in range(4):
+        s.sample_once()
+        frozen_clock.advance(200)
+    assert s.snapshot()['roster_builds'] == 1
+    extra = ActuatedPool()
+    mon.register_pool(extra)
+    for _ in range(3):
+        s.sample_once()
+        frozen_clock.advance(200)
+    assert s.snapshot()['roster_builds'] == 2
+    mon.unregister_pool(pools[7])
+    s.sample_once()
+    s.sample_once()
+    snap = s.snapshot()
+    assert snap['roster_builds'] == 3
+    # The freed row keeps its count and its key; the new pool counts
+    # from its own assignment.
+    assert snap['row_ticks'][snap['rows'][pools[0].p_uuid]] == 9
+    assert snap['row_ticks'][snap['rows'][extra.p_uuid]] == 5
+    freed = [r for r in snap['row_ticks'] if r not in snap['rows'].values()]
+    assert len(freed) == 1 and snap['row_ticks'][freed[0]] == 7
+    assert all(type(k) is int and type(v) is int
+               for k, v in snap['row_ticks'].items())
+    # The records of older ticks keep the row map of their own tick.
+    assert pools[7].p_uuid not in s.fs_history[-1]['pools']
+    assert pools[7].p_uuid in s.fs_history[-3]['pools']
+    assert extra.p_uuid not in s.fs_history[3]['pools']
+    # The released pool was last offered on the tick before it left.
+    assert len(pools[7].advisories) == 7 - 1
+
+
+def test_step_failure_restarts_every_rows_warm_up_gate(frozen_clock):
+    pools = [ActuatedPool(load=float(i % 3)) for i in range(200)]
+    s = actuated_sampler(pools, taps=3)
+    for _ in range(4):
+        s.sample_once()
+        frozen_clock.advance(200)
+    assert all(len(p.advisories) == 2 and len(p.offers) == 2 for p in pools)
+    real = s.fs_step
+
+    def exploding(state, inp):
+        real(state, inp)
+        raise RuntimeError('transient device failure')
+
+    s.fs_step = exploding
+    with pytest.raises(RuntimeError, match='transient'):
+        s.sample_once()
+    s.fs_step = real
+    rows = list(s.fs_rows.values())
+    assert all(s.fs_row_ticks[r] == 0 for r in rows)
+    assert set(s.snapshot()['row_ticks'].values()) == {0}
+    for tick in range(4):
+        frozen_clock.advance(200)
+        rec = s.sample_once()
+        # Offered again only once `taps` ticks have passed.
+        want = 2 + max(0, tick - 1)
+        assert all(len(p.advisories) == want and len(p.offers) == want
+                   for p in pools), tick
+        assert rec['control']['applied'] == (200 if tick >= 2 else 0)
+    assert s.snapshot()['roster_builds'] == 1
+
+
+def test_pools_without_entry_points_are_skipped_and_counted(frozen_clock):
+    pools = ([ActuatedPool() for _ in range(40)]
+             + [AdvisedPool() for _ in range(30)]
+             + [DecidedPool(accept=False) for _ in range(20)]
+             + [FakePool() for _ in range(10)])
+    s = actuated_sampler(pools, taps=1)
+    for _ in range(3):
+        rec = s.sample_once()
+        frozen_clock.advance(200)
+    ctl = rec['control']
+    assert (ctl['applied'], ctl['rejected'], ctl['skipped']) == (40, 20, 40)
+    for p in pools:
+        if isinstance(p, AdvisedPool):
+            assert len(p.advisories) == 3
+            value, at = p.advisories[-1]
+            assert type(value) is float
+            assert value == float(np.float32(
+                rec['pools'][p.p_uuid]['filtered']))
+            assert at == frozen_clock.t - 200
+        if isinstance(p, DecidedPool):
+            assert [o[0] for o in p.offers] == [1, 2, 3]
+
+
+def _decision_columns():
+    ct = np.array([0.0, 250.0, -3.0, np.nan, 7.5, 1e9, 0.0, 42.0, 1.0, 60.0],
+                  np.float32)
+    sp = np.array([0, 3, 4, 10, 1, 2, 11, 5, -1, 6], np.int32)
+    return {'codel_target': ct, 'plan_spares': sp,
+            'epoch': np.asarray(7, np.int32)}
+
+
+def _mixed_pools():
+    return [ActuatedPool(), DecidedPool(accept=False), AdvisedPool(),
+            DecidedPool(), FakePool(), ActuatedPool(), DecidedPool()]
+
+
+@pytest.mark.parametrize('health', [None, {'epoch': 4, 'gray': ['b1']}])
+@pytest.mark.parametrize('as_tensor', [False, True])
+@pytest.mark.parametrize('form', ['dict', 'roster'])
+def test_apply_decisions_roster_view_matches_a_plain_dict(health, as_tensor,
+                                                          form):
+    """The port's apply_decisions, over a plain dict or over the
+    sampler's RowPools view, makes the JAX apply_decisions' calls on a
+    plain dict of the same rows and pools."""
+    from cueball_tpu.parallel.control import apply_decisions as jax_apply
+    from cueball_tpu_torch.parallel.control import RowPools, apply_decisions
+
+    rows = [5, 0, 9, 3, 8, 1, 7]
+    decisions = _decision_columns()
+    port_decisions = decisions
+    if as_tensor:
+        port_decisions = {k: torch.as_tensor(v) for k, v in decisions.items()}
+    want_pools, got_pools = _mixed_pools(), _mixed_pools()
+    got_map = dict(zip(rows, got_pools))
+    if form == 'roster':
+        got_map = RowPools(got_map, [getattr(p, 'apply_control_decision',
+                                             None) for p in got_pools])
+        # The view reads as the dict of the same rows and pools.
+        assert list(got_map) == rows and len(got_map) == len(rows)
+        assert dict(got_map) == dict(zip(rows, got_pools))
+        assert list(got_map.values()) == got_pools and 4 not in got_map
+    got = apply_decisions(got_map, port_decisions, at_ms=1234.5,
+                          health=health)
+    want = jax_apply(dict(zip(rows, want_pools)), decisions, at_ms=1234.5,
+                     health=health)
+    assert got == want == {'applied': 4, 'rejected': 1, 'skipped': 2,
+                           'epoch': 7}
+    for p, q in zip(want_pools, got_pools):
+        assert getattr(p, 'offers', None) == getattr(q, 'offers', None)
+        for a, b in zip(getattr(p, 'offers', ()), getattr(q, 'offers', ())):
+            assert [type(x) for x in a] == [type(x) for x in b]
+    assert got_pools[0].offers == [(7, 1e9, 2, 1234.5, health)]
+    assert got_pools[1].offers == [(7, None, 0, 1234.5, health)]
+    assert got_pools[3].offers == [(7, None, 10, 1234.5, health)]
+    assert got_pools[5].offers == [(7, 250.0, 3, 1234.5, health)]
+    assert type(got_pools[5].offers[0][1]) is float
+
+
+def test_snapshot_row_ticks_keep_the_jax_samplers_keys_and_order(
+        frozen_clock):
+    """Over rows freed, taken again and grown past the capacity, the
+    port's ``row_ticks`` has the JAX sampler's keys, values and order."""
+    pools = [FakePool(load=float(i % 4)) for i in range(10)]
+    mon = PoolMonitor()
+    for p in pools:
+        mon.register_pool(p)
+    want_s = jsampler.FleetSampler({'monitor': mon, 'capacity': 12})
+    got_s = FleetSampler({'monitor': mon, 'capacity': 12, 'device': CPU,
+                          'host': jax_host()})
+
+    def tick():
+        got_s.sample_once()
+        want_s.sample_once()
+        frozen_clock.advance(200)
+
+    try:
+        tick()
+        tick()
+        for p in (pools[6], pools[0], pools[3]):
+            mon.unregister_pool(p)
+        tick()
+        for _ in range(6):
+            mon.register_pool(FakePool())
+        tick()
+        got, want = got_s.snapshot(), want_s.snapshot()
+        assert got_s.fs_capacity > 12
+        assert list(got['row_ticks'].items()) == list(
+            want['row_ticks'].items())
+        assert len(got['row_ticks']) == 13
+    finally:
+        got_s.stop()
+        want_s.stop()
